@@ -49,29 +49,13 @@ from repro_torch.core.plan_cache import PLAN_CACHE
 from repro_torch.core.vertex_program import (FRONTIER_DIR_KEY,
                                              FRONTIER_OCC_KEY, EdgePhase,
                                              VertexProgram, dense_occupancy)
+from repro_torch.device import resolve_device
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.autotune import build_reducer
 from repro_torch.kernels.segment_reduce import (DEFAULT_PLAN,
                                                 gathered_segment_reduce)
 
 __all__ = ["EdgeContext", "RunResult", "run", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a run uses: CUDA unless the caller names another.
-
-    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
-    default) and no CUDA device is present: the port never falls back
-    to the CPU on its own.
-    """
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _check_autotune(autotune) -> None:
@@ -82,7 +66,7 @@ def _check_autotune(autotune) -> None:
     if autotune in (True, "heuristic", "measure"):
         raise NotImplementedError(
             "autotune: the tiling-plan tuner is not ported yet "
-            "(ROADMAP.md, queue 1, item 3); use autotune='off'")
+            "(ROADMAP.md, queue 1, item 4); use autotune='off'")
     raise ValueError(f"unknown autotune mode {autotune!r}; expected "
                      "'off', 'heuristic', 'measure' or a bool")
 

@@ -11,6 +11,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.segment_reduce.ops import (DEFAULT_PLAN,
                                                     BlockedSegmentReducer,
                                                     TilingPlan)
@@ -19,14 +20,16 @@ __all__ = ["build_reducer"]
 
 
 def build_reducer(graph, order: str, plan: Optional[TilingPlan] = None,
-                  device="cpu") -> BlockedSegmentReducer:
+                  device=None) -> BlockedSegmentReducer:
     """Build the blocked reducer for one edge order of a host ``graph``
-    (``autotune.py:266-294``).
+    (``autotune.py:266-294``) on ``device`` (None: the CUDA card; raises
+    ``RuntimeError`` without one unless ``device="cpu"`` is passed).
 
     ``order`` is "owned" (the dst-block-binned by-src order, the DeNovo
     push path) or "pull" (the CSC order, binned under any blocking since
     it is fully dst-sorted).
     """
+    device = resolve_device(device)
     v = int(graph.n_nodes)
     if order == "owned":
         dst_owned = np.asarray(graph.dst)[np.asarray(graph.perm_owned)]

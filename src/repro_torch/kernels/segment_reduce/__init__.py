@@ -1,5 +1,5 @@
-from repro_torch.kernels.segment_reduce.kernel import (build_library,
-                                                       plan_tiles, seg_minmax,
+from repro_torch.kernels.segment_reduce.kernel import (SOURCE, plan_tiles,
+                                                       seg_minmax,
                                                        seg_minmax_plain,
                                                        seg_sum, seg_sum_plain)
 from repro_torch.kernels.segment_reduce.ops import (DEFAULT_PLAN,
@@ -17,6 +17,6 @@ from repro_torch.kernels.segment_reduce.sparse import gathered_segment_reduce
 __all__ = ["BlockedSegmentReducer", "TilingPlan", "DEFAULT_PLAN",
            "bin_edges_by_block", "coarsen_block_ptr", "plan_tiles",
            "seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
-           "build_library", "identity", "segment_reduce_ref",
+           "SOURCE", "identity", "segment_reduce_ref",
            "segment_sum_ref", "segment_min_ref", "segment_max_ref",
            "gathered_segment_reduce"]

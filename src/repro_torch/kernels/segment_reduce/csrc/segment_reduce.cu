@@ -2,7 +2,7 @@
 //
 // Replaces the two Pallas TPU kernels of
 // src/repro/kernels/segment_reduce/kernel.py:
-//   seg_sum_f32            <- seg_sum_pallas     (_sum_kernel, line 80)
+//   seg_sum_{f32,i32}      <- seg_sum_pallas     (_sum_kernel, line 80)
 //   seg_minmax_{f32,i32}   <- seg_minmax_pallas  (_minmax_kernel, line 132)
 //
 // What it computes.  Edges arrive binned by destination block:
@@ -36,8 +36,9 @@
 // so both are bit-exact.  Floats are ordered through an order-preserving
 // map onto int32 (atomicMin/atomicMax on the key): a total order in which
 // -0.0 sorts below +0.0 and a NaN with the sign bit clear sorts above
-// +inf.  The float sum is not order independent: shared-memory atomics
-// land in an order that changes from run to run.
+// +inf.  The int32 sum is exact (it wraps as two's complement does, in
+// any order).  The float sum is not order independent: shared-memory
+// atomics land in an order that changes from run to run.
 //
 // Each entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so that a refused launch is reported.
@@ -55,15 +56,18 @@ __device__ __forceinline__ float key_float(int key) {
   return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
 }
 
-__global__ void seg_sum_f32_kernel(const float* __restrict__ vals,
-                                   const int* __restrict__ ids,
-                                   const int* __restrict__ block_ptr,
-                                   float* __restrict__ out,
-                                   int block_size, int num_segments, int d) {
+// Sum of float32 or int32 values (T), one shared-memory atomicAdd per
+// value.
+template <typename T>
+__global__ void seg_sum_kernel(const T* __restrict__ vals,
+                               const int* __restrict__ ids,
+                               const int* __restrict__ block_ptr,
+                               T* __restrict__ out,
+                               int block_size, int num_segments, int d) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);
+  T* acc = reinterpret_cast<T*>(smem);
   const int n_acc = block_size * d;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = T(0);
   __syncthreads();
 
   const long long base = static_cast<long long>(blockIdx.x) * block_size;
@@ -127,6 +131,16 @@ __global__ void seg_minmax_kernel(const int* __restrict__ vals,
   }
 }
 
+template <typename T>
+int launch_sum(const T* vals, const int* ids, const int* block_ptr, T* out,
+               int n_blocks, int block_size, int num_segments, int d,
+               int threads, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(block_size) * d * sizeof(T);
+  seg_sum_kernel<T><<<n_blocks, threads, smem, stream>>>(
+      vals, ids, block_ptr, out, block_size, num_segments, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool IS_FLOAT>
 int launch_minmax(const int* vals, const int* ids, const int* block_ptr,
                   int* out, int n_blocks, int block_size, int num_segments,
@@ -150,11 +164,17 @@ extern "C" {
 int seg_sum_f32(const float* vals, const int* ids, const int* block_ptr,
                 float* out, int n_blocks, int block_size, int num_segments,
                 int d, int threads, void* stream) {
-  const size_t smem = static_cast<size_t>(block_size) * d * sizeof(float);
-  seg_sum_f32_kernel<<<n_blocks, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      vals, ids, block_ptr, out, block_size, num_segments, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum<float>(vals, ids, block_ptr, out, n_blocks, block_size,
+                           num_segments, d, threads,
+                           static_cast<cudaStream_t>(stream));
+}
+
+int seg_sum_i32(const int* vals, const int* ids, const int* block_ptr,
+                int* out, int n_blocks, int block_size, int num_segments,
+                int d, int threads, void* stream) {
+  return launch_sum<int>(vals, ids, block_ptr, out, n_blocks, block_size,
+                         num_segments, d, threads,
+                         static_cast<cudaStream_t>(stream));
 }
 
 int seg_minmax_f32(const float* vals, const int* ids, const int* block_ptr,

@@ -20,34 +20,28 @@ or raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the root of the checkout, under a name keyed on
-the source's hash, and bound with ``ctypes``.
+the source's hash (:mod:`repro_torch.kernels._build`), and bound with
+``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import load
 from repro_torch.kernels.segment_reduce.ref import SCATTER_REDUCE, identity
 
 __all__ = ["plan_tiles", "seg_sum", "seg_sum_plain", "seg_minmax",
-           "seg_minmax_plain", "build_library", "SMEM_LIMIT"]
+           "seg_minmax_plain", "SOURCE", "SMEM_LIMIT"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 #: Shared memory a CTA may take without opting in to more: the kernels
 #: hold a [block_size, D] accumulator of 4-byte words within it.
 SMEM_LIMIT = 48 * 1024
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def plan_tiles(block_ptr: np.ndarray, tile_e: int):
@@ -88,38 +82,16 @@ def plan_tiles(block_ptr: np.ndarray, tile_e: int):
 # ---------------------------------------------------------------------------
 # build and bind
 # ---------------------------------------------------------------------------
-def build_library() -> Tuple[Path, str]:
-    """Compile ``csrc/segment_reduce.cu`` unless this source's library is
-    already built.  Returns the library's path and the compiler's report
-    (register and shared-memory use per kernel; empty when the library
-    was already there)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"segment_reduce-{digest}.so"
-    if lib.exists():
-        return lib, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(nvcc).exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels of "
-                           f"{SOURCE.name} cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    return lib, proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()[0]))
+    lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.seg_sum_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.seg_sum_i32.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.seg_minmax_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.seg_minmax_i32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.seg_sum_f32, lib.seg_minmax_f32, lib.seg_minmax_i32):
+    for fn in (lib.seg_sum_f32, lib.seg_sum_i32, lib.seg_minmax_f32,
+               lib.seg_minmax_i32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -182,14 +154,14 @@ def _launch(entry: str, values, segment_ids, block_ptr, out, n_blocks,
 def seg_sum(values: torch.Tensor, segment_ids: torch.Tensor,
             block_ptr: torch.Tensor, *, block_size: int, num_segments: int,
             tile_e: int = 512) -> torch.Tensor:
-    """Blocked segment sum of float32 ``values [E, D]`` into
+    """Blocked segment sum of float32 or int32 ``values [E, D]`` into
     ``[num_segments, D]``; edges binned by block as ``block_ptr`` says.
 
-    Float32 only: the TPU kernel also pushed ints through an f32 dot,
-    which no application of the port needs, so ints raise ``TypeError``.
+    The int32 sum is exact (two's-complement, wrapping as int32 does),
+    as the TPU kernel's integer one-hot dot is.
     """
     n_blocks = _check("seg_sum", values, segment_ids, block_ptr, block_size,
-                      num_segments, tile_e, (torch.float32,))
+                      num_segments, tile_e, (torch.float32, torch.int32))
     if values.device.type == "cpu":
         return seg_sum_plain(values, segment_ids, block_ptr,
                              block_size=block_size, num_segments=num_segments,
@@ -198,8 +170,9 @@ def seg_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                       device=values.device)
     if n_blocks == 0:
         return out
-    _launch("seg_sum_f32", values, segment_ids, block_ptr, out, n_blocks,
-            block_size, num_segments, tile_e)
+    entry = "seg_sum_f32" if values.dtype == torch.float32 else "seg_sum_i32"
+    _launch(entry, values, segment_ids, block_ptr, out, n_blocks, block_size,
+            num_segments, tile_e)
     seg_sum.launches += 1
     return out
 
@@ -270,7 +243,7 @@ def _plain(values, segment_ids, block_ptr, block_size, num_segments, tile_e,
 def seg_sum_plain(values, segment_ids, block_ptr, *, block_size: int,
                   num_segments: int, tile_e: int = 512) -> torch.Tensor:
     """Plain version of :func:`seg_sum` (same inputs, same result up to
-    the order of float additions)."""
+    the order of float additions; int32 bit-equal)."""
     return _plain(values, segment_ids, block_ptr, block_size, num_segments,
                   tile_e, "sum")
 

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.segment_reduce.kernel import seg_minmax, seg_sum
 from repro_torch.kernels.segment_reduce.ref import identity
 
@@ -96,7 +97,9 @@ def bin_edges_by_block(dst: np.ndarray, n_nodes: int,
 
 
 class BlockedSegmentReducer:
-    """Plan once on the host, reduce many times on ``device``.
+    """Plan once on the host, reduce many times on ``device`` (None: the
+    CUDA card; raises ``RuntimeError`` without one unless ``device="cpu"``
+    is passed).
 
     ``segment_ids`` arrive binned by target block with ``block_ptr``
     giving per-block edge offsets, as :class:`~repro_torch.graph.Graph`
@@ -106,7 +109,8 @@ class BlockedSegmentReducer:
 
     def __init__(self, segment_ids: np.ndarray, block_ptr: np.ndarray,
                  num_segments: int, block_size: int, tile_e: int = 512,
-                 plan: "TilingPlan | None" = None, device="cpu"):
+                 plan: "TilingPlan | None" = None, device=None):
+        device = resolve_device(device)
         self.plan = plan if plan is not None else TilingPlan(tile_e=tile_e)
         block_ptr = np.asarray(block_ptr)
         self.n_tiles = int(np.maximum(1, -(-np.diff(block_ptr)
@@ -122,7 +126,7 @@ class BlockedSegmentReducer:
     def from_plan(cls, segment_ids: np.ndarray, block_ptr: np.ndarray,
                   num_segments: int, base_block_size: int,
                   plan: "TilingPlan | None" = None,
-                  device="cpu") -> "BlockedSegmentReducer":
+                  device=None) -> "BlockedSegmentReducer":
         """Plan-parameterized constructor: ``block_mult`` coarsens the
         base blocking before the reducer is built."""
         plan = plan if plan is not None else DEFAULT_PLAN

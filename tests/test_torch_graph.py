@@ -178,7 +178,7 @@ def test_package_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 45  # every module was imported
 
 
 def test_run_without_device_needs_cuda(tiny_graph):

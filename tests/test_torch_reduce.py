@@ -55,7 +55,7 @@ def test_blocked_reducer_matches_reference(e, v, b, d, kind):
     vals = _values(rng, e, d, "float32")
     ref = np.asarray(JReducer(ids, bp, v, b, tile_e=256).reduce(
         jnp.asarray(vals), kind))
-    red = BlockedSegmentReducer(ids, bp, v, b, tile_e=256)
+    red = BlockedSegmentReducer(ids, bp, v, b, tile_e=256, device="cpu")
     got = red.reduce(torch.from_numpy(vals), kind).numpy()
     assert got.shape == ref.shape and got.dtype == ref.dtype
     if kind == "sum":
@@ -66,13 +66,13 @@ def test_blocked_reducer_matches_reference(e, v, b, d, kind):
 
 
 @pytest.mark.parametrize("e,v,b,d", SWEEP[:3])
-@pytest.mark.parametrize("kind", ["min", "max"])
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
 def test_blocked_reducer_int32_exact(e, v, b, d, kind):
     rng = np.random.default_rng(e * 7 + v)
     ids, bp = _binned(rng, e, v, b)
     vals = _values(rng, e, d, "int32")
     ref = np.asarray(JReducer(ids, bp, v, b).reduce(jnp.asarray(vals), kind))
-    got = BlockedSegmentReducer(ids, bp, v, b).reduce(
+    got = BlockedSegmentReducer(ids, bp, v, b, device="cpu").reduce(
         torch.from_numpy(vals), kind).numpy()
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, ref)
@@ -87,7 +87,7 @@ def test_masked_matches_reference(kind):
     mask = rng.random(e) < 0.6
     ref = np.asarray(JReducer(ids, bp, v, b).masked(
         jnp.asarray(vals), jnp.asarray(mask), kind))
-    got = BlockedSegmentReducer(ids, bp, v, b).masked(
+    got = BlockedSegmentReducer(ids, bp, v, b, device="cpu").masked(
         torch.from_numpy(vals), torch.from_numpy(mask), kind).numpy()
     if kind == "sum":
         np.testing.assert_allclose(got, ref, atol=1e-5)
@@ -159,8 +159,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     ids_t = torch.from_numpy(ids.astype(np.int32))
     bp_t = torch.from_numpy(bp.astype(np.int32))
     kw = dict(block_size=32, num_segments=64)
-    with pytest.raises(TypeError, match="values"):  # K1 is float32 only
-        seg_sum(torch.ones(100, 1, dtype=torch.int32), ids_t, bp_t, **kw)
+    ints = torch.ones(100, 1, dtype=torch.int32)  # K1 sums int32 exactly
+    assert torch.equal(seg_sum(ints, ids_t, bp_t, **kw),
+                       seg_sum_plain(ints, ids_t, bp_t, **kw))
+    with pytest.raises(TypeError, match="values"):
+        seg_sum(torch.ones(100, 1, dtype=torch.int64), ids_t, bp_t, **kw)
     with pytest.raises(TypeError):
         seg_minmax(torch.ones(100, 1, dtype=torch.float64), ids_t, bp_t,
                    is_min=True, **kw)
@@ -189,3 +192,34 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     meta = tuple(a.to("meta") for a in args)
     with pytest.raises(ValueError, match="no kernel"):
         seg_sum(*meta, **kw)
+
+
+def test_int32_sum_matches_numpy_add_at():
+    rng = np.random.default_rng(11)
+    e, v, b = 3000, 700, 128
+    ids, bp = _binned(rng, e, v, b)
+    vals = rng.integers(-2**20, 2**20, (e, 3)).astype(np.int32)
+    got = seg_sum(torch.from_numpy(vals), torch.from_numpy(ids.astype(np.int32)),
+                  torch.from_numpy(bp.astype(np.int32)), block_size=b,
+                  num_segments=v, tile_e=256)
+    want = np.zeros((v, 3), np.int32)
+    np.add.at(want, ids, vals)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_reducers_without_device_need_cuda():
+    from repro_torch.graph import powerlaw_graph
+    from repro_torch.kernels.autotune import build_reducer
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the reducers would use it")
+    ids, bp = _binned(np.random.default_rng(1), 100, 64, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BlockedSegmentReducer(ids, bp, 64, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BlockedSegmentReducer.from_plan(ids, bp, 64, 32)
+    g = powerlaw_graph(200, 800, alpha=1.2, seed=3, block_size=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_reducer(g, "pull")
+    assert build_reducer(g, "owned", device="cpu").segment_ids.device.type \
+        == "cpu"
