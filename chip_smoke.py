@@ -2,6 +2,12 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check what it does.
 
     python3 chip_smoke.py [--out results/torch/chip_smoke.json]
+    python3 chip_smoke.py --sweep [--out ...]
+
+``--sweep`` runs phases 1 and 2, then times K1/K2 on the AMZ stand-in
+over a grid of chunk sizes (``CHUNK_E``) and threads per CTA, each
+configuration checked against the plain version, and stops there: the
+sweep that settles ``CHUNK_E``.  Without it:
 
 Phases, in order, each printing its lines; any failure raises and the
 script exits non-zero:
@@ -18,9 +24,13 @@ script exits non-zero:
    function (CUDA events, median of 15 launches, L2 flushed before
    each by a write long enough to hide the host's issue time).
    - K1/K2 on the AMZ stand-in (Table II scale, fixed seed), the owned
-     and the CSC edge order, D in {1, 8}: min/max and the int32 sum
-     bit-equal, the float32 sum to rtol=1e-5, atol=1e-6 (shared-memory
-     atomics add in a run-dependent order); ``scatter_reduce``.
+     and the CSC edge order, D in {1, 8}, each through its reducer's
+     chunk plan (whose figures are printed first): min/max and the int32
+     sum bit-equal, the float32 sum to rtol=1e-5, atol=1e-6
+     (shared-memory atomics add in a run-dependent order);
+     ``scatter_reduce``, with its time over the kernel's
+     (``library_over_ms``) and the bound's share of the kernel's time
+     (``bound_share``).
    - K3 on a 16,000,000-row table, D=128: P=1 sum at B=512 and
      B=262,144 (bit-equal: a bag of one row is a copy), P=8 mean at
      B=65,536 (rtol=atol=1e-5); ``F.embedding_bag``.
@@ -33,10 +43,12 @@ script exits non-zero:
 4. graph path: with the K1/K2 counts set to 0, run BFS, SSSP and
    PageRank through ``repro_torch.core.run`` with ``use_kernels=True``
    under SD1 (owned kernel), TG0 (pull kernel) and DD1 (both kernels
-   plus the sparse gather); require each run to launch its kernel; then
-   check the states against the numpy oracles (BFS exact, SSSP
-   rtol=1e-5, PR atol=1e-6).  The same cells run once more with
-   ``use_kernels=False`` (plain scatter reductions) for comparison.
+   plus the sparse gather), each cell once untimed and then 3 timed
+   runs (the median is kept: single host-clock runs vary); require each
+   run to launch its kernel; then check the states against the numpy
+   oracles (BFS exact, SSSP rtol=1e-5, PR atol=1e-6).  The same cells
+   run the same way with ``use_kernels=False`` (plain scatter
+   reductions) for comparison.
 5. DLRM serving: MLPerf DLRM (Criteo 1TB) at full width with every
    table capped at 16,000,000 rows (43.0 GB of float32 tables; the
    full 96.1 GB do not fit one 80 GB card), random weights from a
@@ -63,6 +75,7 @@ The full record also goes to ``--out``.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import statistics
@@ -107,6 +120,11 @@ CASES = [("seg_sum", torch.float32, "sum"),
          ("seg_minmax", torch.int32, "min"),
          ("seg_minmax", torch.int32, "max")]
 REPS = 15
+#: graph cells: timed runs after one untimed run, the median is kept
+TIMED_RUNS = 3
+#: the sweep's grid: edges per chunk, threads per CTA
+SWEEP_CHUNK_E = (2048, 4096, 8192, 16384)
+SWEEP_THREADS = (256, 512)
 #: The one reduction of the DLRM configuration: rows per table
 DLRM_MAX_ROWS = 16_000_000
 #: starcoder2-7b attention widths (``configs/starcoder2_7b.py:9-10``)
@@ -446,83 +464,176 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def kernel_phase(graph, dev, flush) -> list:
-    from repro_torch.kernels.autotune import build_reducer
+def plan_figures(red) -> dict:
+    """The chunk plan of a reducer: chunks, blocks split, the largest
+    chunk, and the largest block's share of the edges."""
+    bp = red.block_ptr.cpu().numpy().astype(np.int64)
+    counts = np.diff(bp)
+    split = int((counts > red.chunks.chunk_e).sum())
+    return dict(chunk_e=red.chunks.chunk_e, chunks=red.chunks.n_chunks,
+                blocks=len(counts), blocks_split=split,
+                largest_chunk=red.chunks.longest,
+                largest_block=int(counts.max()),
+                largest_block_share=float(counts.max() / max(1, bp[-1])))
+
+
+def _segment_cases(red, dev, rng, chunks=None):
+    """K1/K2 at the reducer's shapes, D in {1, 8}: yields (label, d, name,
+    dtype, kind, kernel, plain, library, vals) for every case."""
     from repro_torch.kernels.segment_reduce import (identity, seg_minmax,
                                                     seg_minmax_plain,
                                                     seg_sum, seg_sum_plain)
+    ids, bp = red.segment_ids, red.block_ptr
+    e, v, bs = ids.shape[0], red.num_segments, red.block_size
+    chunks = red.chunks if chunks is None else chunks
+    ids_long = ids.long()
+    for d in (1, 8):
+        f32 = torch.from_numpy(
+            rng.uniform(1.0, 16.0, (e, d)).astype(np.float32)).to(dev)
+        i32 = torch.from_numpy(
+            rng.integers(0, 64, (e, d)).astype(np.int32)).to(dev)
+        index = ids_long[:, None].expand(e, d)
+        for name, dtype, kind in CASES:
+            vals = f32 if dtype == torch.float32 else i32
+            kw = dict(block_size=bs, num_segments=v, tile_e=red.tile_e,
+                      chunks=chunks)
+            if name == "seg_sum":
+                kernel = functools.partial(seg_sum, vals, ids, bp, **kw)
+                plain = functools.partial(seg_sum_plain, vals, ids, bp, **kw)
+            else:
+                kw["is_min"] = kind == "min"
+                kernel = functools.partial(seg_minmax, vals, ids, bp, **kw)
+                plain = functools.partial(seg_minmax_plain, vals, ids, bp,
+                                          **kw)
+            base = torch.full((v, d), identity(kind, dtype), dtype=dtype,
+                              device=dev)
+            reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+            library = functools.partial(base.scatter_reduce, 0, index, vals,
+                                        reduce, include_self=True)
+            yield d, name, dtype, kind, kernel, plain, library, vals
+
+
+def _agree(got, want, name, dtype, kind, what) -> float:
+    """Hold a K1/K2 result against the plain one; returns the largest
+    difference (equal entries, the +-inf of empty rows too, count 0)."""
+    err = float(torch.where(got == want, 0.0,
+                            (got.double() - want.double()).abs()).max())
+    if kind == "sum" and dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{name} {dtype} {kind} {what}: not bit-equal "
+                             "to plain")
+    return err
+
+
+def kernel_phase(graph, dev, flush) -> list:
+    from repro_torch.kernels.autotune import build_reducer
     rng = np.random.default_rng(7)
     rows = []
     for order, label in (("owned", "owned"), ("pull", "csc")):
         red = build_reducer(graph, order, device=dev)
-        ids, bp = red.segment_ids, red.block_ptr
-        e, v, bs = ids.shape[0], red.num_segments, red.block_size
-        ids_long = ids.long()
-        for d in (1, 8):
-            f32 = torch.from_numpy(
-                rng.uniform(1.0, 16.0, (e, d)).astype(np.float32)).to(dev)
-            i32 = torch.from_numpy(
-                rng.integers(0, 64, (e, d)).astype(np.int32)).to(dev)
-            index = ids_long[:, None].expand(e, d)
-            for name, dtype, kind in CASES:
-                vals = f32 if dtype == torch.float32 else i32
-                kw = dict(block_size=bs, num_segments=v, tile_e=red.tile_e)
-                if name == "seg_sum":
-                    kernel = lambda: seg_sum(vals, ids, bp, **kw)
-                    plain = lambda: seg_sum_plain(vals, ids, bp, **kw)
-                else:
-                    kw["is_min"] = kind == "min"
-                    kernel = lambda: seg_minmax(vals, ids, bp, **kw)
-                    plain = lambda: seg_minmax_plain(vals, ids, bp, **kw)
-                got, want = kernel(), plain()
-                torch.cuda.synchronize()
-                # equal entries (the +-inf of empty rows too) count 0
-                err = float(torch.where(
-                    got == want, 0.0,
-                    (got.double() - want.double()).abs()).max())
-                if kind == "sum" and dtype == torch.float32:
-                    torch.testing.assert_close(got, want, rtol=1e-5,
-                                               atol=1e-6)
-                elif not torch.equal(got, want):
-                    raise AssertionError(f"{name} {dtype} {kind} {label} "
-                                         f"D={d}: not bit-equal to plain")
-                base = torch.full((v, d), identity(kind, dtype),
-                                  dtype=dtype, device=dev)
-                reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
-                library = lambda: base.scatter_reduce(0, index, vals, reduce,
-                                                      include_self=True)
-                lib_out = library()
-                torch.cuda.synchronize()
-                exact = kind != "sum" or dtype == torch.int32
-                if exact and not torch.equal(lib_out, want):
-                    raise AssertionError("scatter_reduce disagrees")
-                elt = vals.element_size()
-                moved = (vals.numel() * elt + ids.numel() * 4
-                         + bp.numel() * 4 + v * d * elt)
-                bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-                ops_ms = vals.numel() / F32_OPS_PER_S * 1e3
-                row = dict(
-                    name=f"{name}[{str(dtype)[6:]},{kind},{label},D={d}]",
-                    kernel=name, route="cuda", source=SOURCES[name],
-                    replaces=REPLACES[name], launches=0, max_abs_err=err,
-                    ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
-                    bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                    library_ms=time_ms(library, flush),
-                    edges=e, segments=v, block_size=bs, d=d, bytes=moved)
-                rows.append(row)
-                log(f"kernel {row['name']}: ms={row['ms']:.4f} "
-                    f"plain_ms={row['plain_ms']:.4f} "
-                    f"library_ms={row['library_ms']:.4f} "
-                    f"bound_ms={row['bound_ms']:.4f} max_abs_err={err}")
+        figures = plan_figures(red)
+        log(f"plan {label}: {json.dumps(figures)}")
+        e, v, bs = red.segment_ids.shape[0], red.num_segments, red.block_size
+        for (d, name, dtype, kind, kernel, plain, library,
+             vals) in _segment_cases(red, dev, rng):
+            got, want, lib_out = kernel(), plain(), library()
+            torch.cuda.synchronize()
+            err = _agree(got, want, name, dtype, kind, f"{label} D={d}")
+            exact = kind != "sum" or dtype == torch.int32
+            if exact and not torch.equal(lib_out, want):
+                raise AssertionError("scatter_reduce disagrees")
+            elt = vals.element_size()
+            moved = (vals.numel() * elt + e * 4 + (red.block_ptr.numel()
+                                                   + red.chunks.table.numel())
+                     * 4 + v * d * elt)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = vals.numel() / F32_OPS_PER_S * 1e3
+            ms, library_ms = time_ms(kernel, flush), time_ms(library, flush)
+            row = dict(
+                name=f"{name}[{str(dtype)[6:]},{kind},{label},D={d}]",
+                kernel=name, route="cuda", source=SOURCES[name],
+                replaces=REPLACES[name], launches=0, max_abs_err=err,
+                ms=ms, plain_ms=time_ms(plain, flush),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms, library_over_ms=library_ms / ms,
+                bound_share=max(bytes_ms, ops_ms) / ms,
+                edges=e, segments=v, block_size=bs, d=d, bytes=moved,
+                threads=red.tile_e, **figures)
+            rows.append(row)
+            log(f"kernel {row['name']}: ms={ms:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={library_ms:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} "
+                f"library_over_ms={row['library_over_ms']:.2f} "
+                f"bound_share={row['bound_share']:.3f} max_abs_err={err}")
     return rows
+
+
+def sweep_phase(graph, dev, flush) -> list:
+    """K1/K2 over chunk sizes x threads per CTA on the AMZ stand-in, each
+    configuration held against the plain version first."""
+    from repro_torch.kernels.autotune import build_reducer
+    from repro_torch.kernels.segment_reduce import ChunkPlan
+    records = []
+    for order, label in (("owned", "owned"), ("pull", "csc")):
+        red = build_reducer(graph, order, device=dev)
+        bp = red.block_ptr.cpu().numpy()
+        for (d, name, dtype, kind, kernel, plain, library,
+             _) in _segment_cases(red, dev, np.random.default_rng(7)):
+            want = plain()
+            library_ms = time_ms(library, flush)
+            case = f"{name}[{str(dtype)[6:]},{kind},{label},D={d}]"
+            for chunk_e in SWEEP_CHUNK_E:
+                chunks = ChunkPlan.build(bp, chunk_e, dev)
+                for threads in SWEEP_THREADS:
+                    fn = functools.partial(kernel, chunks=chunks,
+                                           tile_e=threads)
+                    got = fn()
+                    torch.cuda.synchronize()
+                    _agree(got, want, name, dtype, kind,
+                           f"{label} D={d} chunk_e={chunk_e} "
+                           f"threads={threads}")
+                    records.append(dict(case=case, chunk_e=chunk_e,
+                                        threads=threads,
+                                        ms=time_ms(fn, flush),
+                                        library_ms=library_ms))
+    by_config = {}
+    for r in records:
+        by_config.setdefault((r["chunk_e"], r["threads"]), []).append(r)
+    for (chunk_e, threads), rs in sorted(by_config.items()):
+        ms = np.array([r["ms"] for r in rs])
+        over = np.array([r["ms"] / r["library_ms"] for r in rs])
+        log(f"sweep chunk_e={chunk_e} threads={threads}: geomean_ms="
+            f"{float(np.exp(np.log(ms).mean())):.4f} max_ms={ms.max():.4f} "
+            f"worst_ms_over_library={over.max():.3f} "
+            f"slower_than_library={int((over >= 1).sum())}/{len(rs)}")
+    return records
+
+
+def _timed_runs(factory, graph, cfg, dev, kernel=None) -> tuple:
+    """One untimed run of a cell, then TIMED_RUNS timed ones, through
+    ``kernel`` (each run must launch it) or, without one, through the
+    plain reductions; returns the last result and the timed seconds."""
+    from repro_torch.core import SystemConfig, run
+    seconds = []
+    for i in range(TIMED_RUNS + 1):
+        before = kernel.launches if kernel else 0
+        res = run(factory(), graph, SystemConfig.from_name(cfg),
+                  use_kernels=kernel is not None, device=dev)
+        if kernel and kernel.launches == before:
+            raise AssertionError(f"{cfg} run {i} launched no "
+                                 f"{kernel.__name__} kernel")
+        if i:
+            seconds.append(res.seconds)
+    return res, seconds
 
 
 def main_path(graph, dev) -> tuple:
     from repro_torch.algorithms import bfs, pagerank, sssp
     from repro_torch.algorithms.reference import (bfs_np, pagerank_np,
                                                   sssp_np)
-    from repro_torch.core import SystemConfig, run
     from repro_torch.kernels.segment_reduce import seg_minmax, seg_sum
     apps = {"BFS": (bfs, seg_minmax), "SSSP": (sssp, seg_minmax),
             "PR": (pagerank, seg_sum)}
@@ -532,34 +643,30 @@ def main_path(graph, dev) -> tuple:
     for cfg in ("SD1", "TG0", "DD1"):
         for app, (factory, kernel) in apps.items():
             before = kernel.launches
-            res = run(factory(), graph, SystemConfig.from_name(cfg),
-                      use_kernels=True, device=dev)
+            res, seconds = _timed_runs(factory, graph, cfg, dev, kernel)
             launched = kernel.launches - before
-            if launched <= 0:
-                raise AssertionError(f"{app} under {cfg} launched no "
-                                     f"{kernel.__name__} kernel")
             if not res.converged:
                 raise AssertionError(f"{app} under {cfg} did not converge")
-            results.append((app, cfg, res, kernel.__name__, launched))
+            results.append((app, cfg, res, seconds, kernel.__name__,
+                            launched))
     launches = {"seg_sum": seg_sum.launches,
                 "seg_minmax": seg_minmax.launches}
     log(f"main path launches: {json.dumps(launches)}")
     # the same cells with the plain scatter reductions, for comparison
     plain_seconds = {}
-    for app, cfg, res, _, _ in results:
-        plain = run(apps[app][0](), graph, SystemConfig.from_name(cfg),
-                    use_kernels=False, device=dev)
+    for app, cfg, res, _, _, _ in results:
+        plain, seconds = _timed_runs(apps[app][0], graph, cfg, dev)
         if plain.iterations != res.iterations and app != "PR":
             raise AssertionError(f"{app} {cfg}: iterations differ between "
                                  "kernel and plain reductions")
-        plain_seconds[app, cfg] = plain.seconds
+        plain_seconds[app, cfg] = seconds
 
     t0 = time.perf_counter()
     oracle = {"BFS": bfs_np(graph), "SSSP": sssp_np(graph),
               "PR": pagerank_np(graph)}
     log(f"oracles: {time.perf_counter() - t0:.1f} s")
     record = []
-    for app, cfg, res, kname, launched in results:
+    for app, cfg, res, seconds, kname, launched in results:
         got = res.extract(apps[app][0]()).cpu().numpy()
         if not np.isfinite(got).any() or got.shape != oracle[app].shape:
             raise AssertionError(f"{app} {cfg}: bad result shape/values")
@@ -569,17 +676,21 @@ def main_path(graph, dev) -> tuple:
             np.testing.assert_allclose(got, oracle[app], rtol=1e-5)
         else:
             np.testing.assert_allclose(got, oracle[app], atol=1e-6)
+        med = statistics.median(seconds)
+        plain_med = statistics.median(plain_seconds[app, cfg])
         entry = dict(app=app, config=cfg, iterations=res.iterations,
-                     seconds=res.seconds, host_syncs=res.host_syncs,
+                     seconds=med, seconds_runs=seconds,
+                     host_syncs=res.host_syncs,
                      host_syncs_per_iteration=res.host_syncs / res.iterations,
                      direction_trace=res.direction_trace,
                      sparse_iterations=res.sparse_iterations,
                      kernel=kname, kernel_launches=launched,
-                     seconds_without_kernels=plain_seconds[app, cfg])
+                     seconds_without_kernels=plain_med,
+                     seconds_without_kernels_runs=plain_seconds[app, cfg])
         record.append(entry)
         log(f"run {app} {cfg}: ok iterations={res.iterations} "
-            f"seconds={res.seconds:.4f} "
-            f"seconds_without_kernels={plain_seconds[app, cfg]:.4f} "
+            f"seconds={med:.4f} seconds_without_kernels={plain_med:.4f} "
+            f"(median of {TIMED_RUNS} after 1 untimed) "
             f"host_syncs={res.host_syncs} "
             f"{kname}_launches={launched} "
             f"sparse_iterations={res.sparse_iterations} "
@@ -591,6 +702,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "results" / "torch" /
                                          "chip_smoke.json"))
+    ap.add_argument("--sweep", action="store_true",
+                    help="time K1/K2 over chunk sizes and threads per CTA, "
+                         "and stop")
     args = ap.parse_args()
 
     # 1. device
@@ -616,8 +730,20 @@ def main() -> int:
         f"block_size={graph.block_size} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 3. kernels against their plain versions
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    last = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    if args.sweep:
+        records = sweep_phase(graph, dev, flush)
+        out.write_text(json.dumps(dict(card=card, build_seconds=build_s,
+                                       sweep=records), indent=1))
+        log(last)
+        return 0
+
+    # 3. kernels against their plain versions
     rows = kernel_phase(graph, dev, flush)
     rows += embag_rows(dev, flush)
     free_device_memory()
@@ -642,16 +768,12 @@ def main() -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, build_seconds=build_s,
                                    kernels=rows, runs=runs, dlrm=dlrm,
                                    attention=attn), indent=1))
     # 7. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    log(last)
     return 0
 
 

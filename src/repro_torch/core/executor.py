@@ -165,6 +165,13 @@ class EdgeContext:
                     _pad_reshape(dst.long(), n_chunks, v),
                     _pad_reshape(w, n_chunks, 0.0))
 
+        # the whole edge order for the blocked kernels, with int64
+        # endpoints so that gathering state by them converts nothing per
+        # iteration
+        def raw(edges):
+            src, dst, w = edges
+            return src.long(), dst.long(), w
+
         self._reducer = None
         self._pull_reducer = None
         self._gather_plan = None
@@ -177,7 +184,8 @@ class EdgeContext:
                                          ("owned", n_chunks, dev),
                                          lambda: chunked(owned))
             if use_kernels and config.prop is not UpdateProp.PULL:
-                self._owned_raw = owned
+                self._owned_raw = cache.get(graph, "raw", ("owned", dev),
+                                            lambda: raw(owned))
                 self._reducer = cache.get(
                     graph, "owned_reducer", (DEFAULT_PLAN, dev),
                     lambda: build_reducer(graph, "owned", DEFAULT_PLAN,
@@ -190,7 +198,9 @@ class EdgeContext:
             graph, "chunked", ("csc", n_chunks, dev),
             lambda: chunked((g.src_in, g.dst_in, g.weight_in)))
         if use_kernels and config.prop is not UpdateProp.PUSH:
-            self._pull_raw = (g.src_in, g.dst_in, g.weight_in)
+            self._pull_raw = cache.get(
+                graph, "raw", ("csc", dev),
+                lambda: raw((g.src_in, g.dst_in, g.weight_in)))
             self._pull_reducer = cache.get(
                 graph, "pull_reducer", (DEFAULT_PLAN, dev),
                 lambda: build_reducer(graph, "pull", DEFAULT_PLAN,
@@ -342,12 +352,15 @@ class EdgeContext:
             # blocked kernel over the whole edge set in block-binned
             # order; masked edges contribute the identity
             so, do, wo = self._pull_raw if pull else self._owned_raw
-            mask = torch.ones(so.shape, dtype=torch.bool, device=so.device)
-            if phase.spred is not None:
-                mask = mask & phase.spred(state, so)
-            if phase.tpred is not None:
-                mask = mask & phase.tpred(state, do)
             msg = phase.vprop(state, so, wo).to(dtype)
+            mask = None
+            if phase.spred is not None:
+                mask = phase.spred(state, so)
+            if phase.tpred is not None:
+                keep = phase.tpred(state, do)
+                mask = keep if mask is None else mask & keep
+            if mask is None:
+                return reducer.reduce(msg, monoid.name)
             return reducer.masked(msg, mask, monoid.name, ident=ident)
 
         src_c, dst_c, w_c = self._pull_edges if pull else self._push_edges

@@ -1,5 +1,6 @@
-from repro_torch.kernels.segment_reduce.kernel import (SOURCE, plan_tiles,
-                                                       seg_minmax,
+from repro_torch.kernels.segment_reduce.kernel import (CHUNK_E, SOURCE,
+                                                       ChunkPlan, plan_chunks,
+                                                       plan_tiles, seg_minmax,
                                                        seg_minmax_plain,
                                                        seg_sum, seg_sum_plain)
 from repro_torch.kernels.segment_reduce.ops import (DEFAULT_PLAN,
@@ -16,6 +17,7 @@ from repro_torch.kernels.segment_reduce.sparse import gathered_segment_reduce
 
 __all__ = ["BlockedSegmentReducer", "TilingPlan", "DEFAULT_PLAN",
            "bin_edges_by_block", "coarsen_block_ptr", "plan_tiles",
+           "plan_chunks", "ChunkPlan", "CHUNK_E",
            "seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
            "SOURCE", "identity", "segment_reduce_ref",
            "segment_sum_ref", "segment_min_ref", "segment_max_ref",

@@ -14,38 +14,64 @@
 // drops it.  A row no edge reaches holds the identity (0, +-inf, or the
 // int32 extrema), also for a block that has no edges at all.
 //
-// Design.  One CTA owns one output block.  It keeps the block's
-// [block_size, D] accumulator in shared memory (the SM's L1), walks the
-// block's edge range with a stride of blockDim.x (the TPU plan's tile_e),
-// applies every update with a shared-memory atomic, and writes the block
-// back to device memory once.  The TPU kernel kept the block resident in
-// VMEM across the sequential grid steps of its tiles; here the loop
-// inside the CTA takes the place of that sequential grid dimension, and
-// blocks run in parallel because no two CTAs share an output row.
+// Design.  A chunk plan made once on the host (plan_chunks in kernel.py)
+// cuts every block's edge range into chunks of at most chunk_e edges; an
+// empty block keeps one empty chunk so that its rows are written.  One
+// CTA reduces one chunk into a [block_size, D] accumulator in shared
+// memory, so a hub block of a degree-sorted graph is spread over many
+// CTAs instead of being walked by one.  Inside the CTA, each warp takes
+// 32/L consecutive edges per step, L lanes per edge (L, a power of two,
+// is D rounded up, at most 32; a lane loops over the features f = s,
+// s+L, ..), so a warp's loads cover consecutive words.  Consecutive
+// edges with the same segment id (a hub's run in the CSC order) are
+// first combined by a segmented scan over the warp's lanes (shuffles),
+// and only the last lane of a run applies a shared-memory atomic: a run
+// of 32 edges into one word costs one atomic, not 32 serialised ones.
+// No integer division runs per value: offsets inside a chunk are 32-bit
+// and incremental, on a 64-bit chunk base.
 //
-// What bounds it.  Bytes: each call reads vals (E*D*4), ids (E*4) and
-// block_ptr, and writes the output (V*D*4) once, about E*(4+4) + V*4
-// bytes at D=1; the arithmetic is one add or compare per value.  The
-// design reads each input exactly once, coalesced (consecutive threads
-// take consecutive (edge, feature) slots), keeps every partial result in
-// shared memory, and never resolves an update in device memory, so its
-// device-memory traffic is that minimum.  Contention on a hub vertex's
-// shared-memory word is the cost it pays instead.
+// Merging a split block.  A block of one chunk is written from shared
+// memory straight to out.  Each chunk of a split block writes its partial
+// to its slot of a scratch buffer, fences, and counts itself in the
+// block's counter; the CTA that counts last reads the block's partials
+// in chunk order (through L2), combines them, writes the rows once, and
+// resets the counter to 0 for the next call.  So every output row is
+// written exactly once, and partials are combined in a fixed order.
+//
+// What bounds it.  The call must read vals (E*D*4) and ids (E*4) and
+// write out (V*D*4) once, about E*(4+4) + V*4 bytes at D=1; split blocks
+// add their partials (slots * block_size * D * 4, written and read once,
+// mostly in L2).  The arithmetic is one add or compare per value.  Every
+// input is read once, coalesced, with the ids and first values of four
+// warp steps in flight per thread.  What bounds it is memory-level
+// parallelism, not bytes: a chunk takes a few dependent trips to memory
+// (its plan entry, then its loads), and at 50-56 registers a thread two
+// CTAs of 512 threads fit on an SM, so the kernel stays well under the
+// HBM rate (PERF.md gives its share of the bound); the merge of the
+// largest split block by one CTA runs beside the other chunks.
 //
 // Exactness.  min and max are independent of the order of the updates,
 // so both are bit-exact.  Floats are ordered through an order-preserving
 // map onto int32 (atomicMin/atomicMax on the key): a total order in which
 // -0.0 sorts below +0.0 and a NaN with the sign bit clear sorts above
 // +inf.  The int32 sum is exact (it wraps as two's complement does, in
-// any order).  The float sum is not order independent: shared-memory
-// atomics land in an order that changes from run to run.
+// any order).  The float sum is not order independent: the scan's order
+// is fixed, but the shared-memory atomics of the warps land in an order
+// that changes from run to run, so the f32 sum is run-dependent.
 //
-// Each entry point launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() so that a refused launch is reported.
+// Each entry point launches on the caller's stream, allocates nothing
+// (out, the partials and the counters come from the caller), and returns
+// cudaGetLastError() so that a refused launch is reported.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+// warp steps whose loads a thread issues before it reduces them
+constexpr int kUnroll = 4;
 
 __device__ __forceinline__ int float_key(float f) {
   const int bits = __float_as_int(f);
@@ -56,104 +82,245 @@ __device__ __forceinline__ float key_float(int key) {
   return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
 }
 
-// Sum of float32 or int32 values (T), one shared-memory atomicAdd per
-// value.
-template <typename T>
-__global__ void seg_sum_kernel(const T* __restrict__ vals,
-                               const int* __restrict__ ids,
-                               const int* __restrict__ block_ptr,
-                               T* __restrict__ out,
-                               int block_size, int num_segments, int d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* acc = reinterpret_cast<T*>(smem);
-  const int n_acc = block_size * d;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = T(0);
-  __syncthreads();
-
-  const long long base = static_cast<long long>(blockIdx.x) * block_size;
-  const long long lo = static_cast<long long>(block_ptr[blockIdx.x]) * d;
-  const long long hi = static_cast<long long>(block_ptr[blockIdx.x + 1]) * d;
-  for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
-    const long long e = k / d;
-    const long long lid = ids[e] - base;
-    if (lid >= 0 && lid < block_size) {
-      atomicAdd(&acc[lid * d + (k - e * d)], vals[k]);
-    }
+// A reduction: In is the element type of vals and out, Acc the word the
+// accumulator holds.
+struct SumF32 {
+  using In = float;
+  using Acc = float;
+  static __device__ __forceinline__ Acc ident() { return 0.0f; }
+  static __device__ __forceinline__ Acc from(In v) { return v; }
+  static __device__ __forceinline__ In to(Acc a) { return a; }
+  static __device__ __forceinline__ Acc combine(Acc a, Acc b) { return a + b; }
+  static __device__ __forceinline__ void atomic(Acc* p, Acc v) {
+    atomicAdd(p, v);
   }
-  __syncthreads();
+};
 
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-    const long long row = base + i / d;
-    if (row < num_segments) out[row * d + i % d] = acc[i];
+struct SumI32 {
+  using In = int;
+  using Acc = int;
+  static __device__ __forceinline__ Acc ident() { return 0; }
+  static __device__ __forceinline__ Acc from(In v) { return v; }
+  static __device__ __forceinline__ In to(Acc a) { return a; }
+  static __device__ __forceinline__ Acc combine(Acc a, Acc b) {
+    return static_cast<int>(static_cast<unsigned>(a) +
+                            static_cast<unsigned>(b));
   }
-}
+  static __device__ __forceinline__ void atomic(Acc* p, Acc v) {
+    atomicAdd(p, v);
+  }
+};
 
 // Min or max over int32 keys.  For int32 values the key is the value;
-// for float32 values it is float_key(value).
+// for float32 values (passed as their bits) it is float_key(value).
 template <bool IS_FLOAT, bool IS_MIN>
-__global__ void seg_minmax_kernel(const int* __restrict__ vals,
-                                  const int* __restrict__ ids,
-                                  const int* __restrict__ block_ptr,
-                                  int* __restrict__ out,
-                                  int block_size, int num_segments, int d,
-                                  int ident_key) {
+struct MinMax {
+  using In = int;
+  using Acc = int;
+  static __device__ __forceinline__ Acc ident() {
+    // float_key(+inf) = 0x7f800000; float_key(-inf) = 0xff800000 ^ 0x7fffffff
+    if (IS_FLOAT) return IS_MIN ? 0x7f800000 : static_cast<int>(0x807fffffu);
+    return IS_MIN ? INT_MAX : INT_MIN;
+  }
+  static __device__ __forceinline__ Acc from(In v) {
+    return IS_FLOAT ? float_key(__int_as_float(v)) : v;
+  }
+  static __device__ __forceinline__ In to(Acc a) {
+    return IS_FLOAT ? __float_as_int(key_float(a)) : a;
+  }
+  static __device__ __forceinline__ Acc combine(Acc a, Acc b) {
+    return IS_MIN ? min(a, b) : max(a, b);
+  }
+  static __device__ __forceinline__ void atomic(Acc* p, Acc v) {
+    if (IS_MIN) {
+      atomicMin(p, v);
+    } else {
+      atomicMax(p, v);
+    }
+  }
+};
+
+// Four words of partials at once, read through L2 (another CTA wrote
+// them).
+template <class Acc>
+struct Quad {
+  Acc w[4];
+};
+
+__device__ __forceinline__ float from_bits(int b, float) {
+  return __int_as_float(b);
+}
+__device__ __forceinline__ int from_bits(int b, int) { return b; }
+
+template <class Acc>
+__device__ __forceinline__ Quad<Acc> load_quad(const Acc* p) {
+  const int4 q = __ldcg(reinterpret_cast<const int4*>(p));
+  return Quad<Acc>{{from_bits(q.x, Acc()), from_bits(q.y, Acc()),
+                    from_bits(q.z, Acc()), from_bits(q.w, Acc())}};
+}
+
+// One CTA per chunk.  plan is [5, n_chunks] int32: block, start, end,
+// index among its block's chunks, slot in partials (-1: the block has one
+// chunk).  lanes = 1 << log2_lanes lanes share an edge.
+template <class Op>
+__global__ void __launch_bounds__(1024)
+seg_reduce_kernel(const typename Op::In* __restrict__ vals,
+                  const int* __restrict__ ids,
+                  const int* __restrict__ block_ptr,
+                  const int* __restrict__ plan, int n_chunks, int chunk_e,
+                  typename Op::In* __restrict__ out,
+                  typename Op::Acc* __restrict__ partials,
+                  int* __restrict__ counters, int block_size,
+                  int num_segments, int d, int log2_lanes) {
+  using Acc = typename Op::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* acc = reinterpret_cast<int*>(smem);
+  Acc* acc = reinterpret_cast<Acc*>(smem);
+  const int c = blockIdx.x;
+  const int b = plan[c];
+  const int lo = plan[n_chunks + c];
+  const int n_edges = plan[2 * n_chunks + c] - lo;
+  const int index = plan[3 * n_chunks + c];
+  const int slot = plan[4 * n_chunks + c];
   const int n_acc = block_size * d;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = ident_key;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = Op::ident();
   __syncthreads();
 
-  const long long base = static_cast<long long>(blockIdx.x) * block_size;
-  const long long lo = static_cast<long long>(block_ptr[blockIdx.x]) * d;
-  const long long hi = static_cast<long long>(block_ptr[blockIdx.x + 1]) * d;
-  for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
-    const long long e = k / d;
-    const long long lid = ids[e] - base;
-    if (lid >= 0 && lid < block_size) {
-      const int v = vals[k];
-      const int key = IS_FLOAT ? float_key(__int_as_float(v)) : v;
-      int* slot = &acc[lid * d + (k - e * d)];
-      if (IS_MIN) {
-        atomicMin(slot, key);
-      } else {
-        atomicMax(slot, key);
+  const int lanes = 1 << log2_lanes;   // lanes per edge
+  const int group = 32 >> log2_lanes;  // edges per warp step
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> log2_lanes;    // the lane's edge within the step
+  const int s = lane & (lanes - 1);    // its first feature
+  const int n_feat = (d + lanes - 1) >> log2_lanes;
+  unsigned leaders = 0;                // the first lane of every edge
+  for (int k = 0; k < 32; k += lanes) leaders |= 1u << k;
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0 .. lane
+  const int next = lane - s + lanes;        // first lane of the next edge
+  const long long base = static_cast<long long>(b) * block_size;
+  const int* __restrict__ chunk_ids = ids + lo;
+  const typename Op::In* __restrict__ chunk_vals =
+      vals + static_cast<long long>(lo) * d;
+
+  const int step = group * kUnroll;
+  for (int k0 = (threadIdx.x >> 5) * step; k0 < n_edges;
+       k0 += (blockDim.x >> 5) * step) {
+    int lid[kUnroll], start[kUnroll];
+    bool tail[kUnroll], scan[kUnroll];
+    Acc v[kUnroll];
+    // the ids and the first feature's values, all loads in flight at once
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * group + g;
+      lid[u] = k < n_edges ? chunk_ids[k] : 0;
+      v[u] = (k < n_edges && s < d) ? Op::from(chunk_vals[k * d + s])
+                                    : Op::ident();
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long l = lid[u] - base;
+      // -1: no edge, or an id outside the block
+      lid[u] = (k0 + u * group + g < n_edges && l >= 0 && l < block_size)
+                   ? static_cast<int>(l)
+                   : -1;
+      const int prev =
+          group > 1 ? __shfl_up_sync(kFull, lid[u], lanes) : lid[u];
+      const bool head = g == 0 || prev != lid[u];
+      const unsigned heads = __ballot_sync(kFull, head && s == 0);
+      start[u] = 31 - __clz(heads & upto);  // first lane of the lane's run
+      tail[u] = next >= 32 || ((heads >> next) & 1u);
+      scan[u] = heads != leaders;  // some run spans two edges
+    }
+    for (int j = 0; j < n_feat; ++j) {
+      const int f = s + (j << log2_lanes);
+      if (j > 0) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int k = k0 + u * group + g;
+          v[u] = (k < n_edges && f < d) ? Op::from(chunk_vals[k * d + f])
+                                        : Op::ident();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (scan[u]) {  // warp-uniform
+          for (int off = lanes; off < 32; off <<= 1) {
+            const Acc o = __shfl_up_sync(kFull, v[u], off);
+            if (lane - off >= start[u]) v[u] = Op::combine(v[u], o);
+          }
+        }
+        if (tail[u] && lid[u] >= 0 && f < d) {
+          Op::atomic(&acc[lid[u] * d + f], v[u]);
+        }
       }
     }
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-    const long long row = base + i / d;
-    if (row < num_segments) {
-      const int key = acc[i];
-      out[row * d + i % d] = IS_FLOAT ? __float_as_int(key_float(key)) : key;
+  // rows of this block that exist: the last block may be cut short
+  typename Op::In* __restrict__ out_block = out + base * d;
+  const long long left = static_cast<long long>(num_segments) * d - base * d;
+  const int n_out = left < n_acc ? static_cast<int>(left) : n_acc;
+  if (slot < 0) {
+    for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+      out_block[i] = Op::to(acc[i]);
     }
+    return;
+  }
+
+  Acc* __restrict__ part = partials + static_cast<long long>(slot) * n_acc;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) part[i] = acc[i];
+  __threadfence();
+  __syncthreads();
+  const int n_parts =
+      (block_ptr[b + 1] - block_ptr[b] + chunk_e - 1) / chunk_e;
+  int ticket = 0;
+  if (threadIdx.x == 0) ticket = atomicAdd(&counters[b], 1);
+  if (!__syncthreads_or(threadIdx.x == 0 && ticket == n_parts - 1)) return;
+  // the last chunk of the block: combine the partials in chunk order
+  __threadfence();
+  if (threadIdx.x == 0) counters[b] = 0;
+  const Acc* first = partials + static_cast<long long>(slot - index) * n_acc;
+  if ((n_acc & 3) == 0) {  // 16-byte loads: every slot starts aligned
+    for (int i = 4 * threadIdx.x; i < n_out; i += 4 * blockDim.x) {
+      Quad<Acc> r = load_quad(first + i);
+#pragma unroll 8
+      for (int p = 1; p < n_parts; ++p) {
+        const Quad<Acc> q =
+            load_quad(first + static_cast<long long>(p) * n_acc + i);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) r.w[w] = Op::combine(r.w[w], q.w[w]);
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        if (i + w < n_out) out_block[i + w] = Op::to(r.w[w]);
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+    Acc r = __ldcg(first + i);
+#pragma unroll 8
+    for (int p = 1; p < n_parts; ++p) {
+      r = Op::combine(
+          r, __ldcg(first + static_cast<long long>(p) * n_acc + i));
+    }
+    out_block[i] = Op::to(r);
   }
 }
 
-template <typename T>
-int launch_sum(const T* vals, const int* ids, const int* block_ptr, T* out,
-               int n_blocks, int block_size, int num_segments, int d,
-               int threads, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(block_size) * d * sizeof(T);
-  seg_sum_kernel<T><<<n_blocks, threads, smem, stream>>>(
-      vals, ids, block_ptr, out, block_size, num_segments, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool IS_FLOAT>
-int launch_minmax(const int* vals, const int* ids, const int* block_ptr,
-                  int* out, int n_blocks, int block_size, int num_segments,
-                  int d, int is_min, int ident_key, int threads,
-                  cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(block_size) * d * sizeof(int);
-  if (is_min) {
-    seg_minmax_kernel<IS_FLOAT, true><<<n_blocks, threads, smem, stream>>>(
-        vals, ids, block_ptr, out, block_size, num_segments, d, ident_key);
-  } else {
-    seg_minmax_kernel<IS_FLOAT, false><<<n_blocks, threads, smem, stream>>>(
-        vals, ids, block_ptr, out, block_size, num_segments, d, ident_key);
-  }
+template <class Op>
+int launch(const void* vals, const int* ids, const int* block_ptr,
+           const int* plan, int n_chunks, int chunk_e, void* out,
+           void* partials, int* counters, int block_size, int num_segments,
+           int d, int threads, cudaStream_t stream) {
+  int log2_lanes = 0;
+  while (log2_lanes < 5 && (1 << log2_lanes) < d) ++log2_lanes;
+  const size_t smem =
+      static_cast<size_t>(block_size) * d * sizeof(typename Op::Acc);
+  seg_reduce_kernel<Op><<<n_chunks, threads, smem, stream>>>(
+      static_cast<const typename Op::In*>(vals), ids, block_ptr, plan,
+      n_chunks, chunk_e, static_cast<typename Op::In*>(out),
+      static_cast<typename Op::Acc*>(partials), counters, block_size,
+      num_segments, d, log2_lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -162,40 +329,56 @@ int launch_minmax(const int* vals, const int* ids, const int* block_ptr,
 extern "C" {
 
 int seg_sum_f32(const float* vals, const int* ids, const int* block_ptr,
-                float* out, int n_blocks, int block_size, int num_segments,
-                int d, int threads, void* stream) {
-  return launch_sum<float>(vals, ids, block_ptr, out, n_blocks, block_size,
-                           num_segments, d, threads,
-                           static_cast<cudaStream_t>(stream));
+                const int* plan, int n_chunks, int chunk_e, float* out,
+                float* partials, int* counters, int block_size,
+                int num_segments, int d, int threads, void* stream) {
+  return launch<SumF32>(vals, ids, block_ptr, plan, n_chunks, chunk_e, out,
+                        partials, counters, block_size, num_segments, d,
+                        threads, static_cast<cudaStream_t>(stream));
 }
 
 int seg_sum_i32(const int* vals, const int* ids, const int* block_ptr,
-                int* out, int n_blocks, int block_size, int num_segments,
-                int d, int threads, void* stream) {
-  return launch_sum<int>(vals, ids, block_ptr, out, n_blocks, block_size,
-                         num_segments, d, threads,
-                         static_cast<cudaStream_t>(stream));
+                const int* plan, int n_chunks, int chunk_e, int* out,
+                int* partials, int* counters, int block_size,
+                int num_segments, int d, int threads, void* stream) {
+  return launch<SumI32>(vals, ids, block_ptr, plan, n_chunks, chunk_e, out,
+                        partials, counters, block_size, num_segments, d,
+                        threads, static_cast<cudaStream_t>(stream));
 }
 
+// float32 values pass as their bits; partials hold int32 keys
 int seg_minmax_f32(const float* vals, const int* ids, const int* block_ptr,
-                   float* out, int n_blocks, int block_size,
+                   const int* plan, int n_chunks, int chunk_e, float* out,
+                   int* partials, int* counters, int block_size,
                    int num_segments, int d, int is_min, int threads,
                    void* stream) {
-  // float_key(+inf) = 0x7f800000; float_key(-inf) = 0xff800000 ^ 0x7fffffff
-  const int ident_key = is_min ? 0x7f800000 : static_cast<int>(0x807fffffu);
-  return launch_minmax<true>(reinterpret_cast<const int*>(vals), ids,
-                             block_ptr, reinterpret_cast<int*>(out), n_blocks,
-                             block_size, num_segments, d, is_min, ident_key,
-                             threads, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_min
+             ? launch<MinMax<true, true>>(vals, ids, block_ptr, plan,
+                                          n_chunks, chunk_e, out, partials,
+                                          counters, block_size, num_segments,
+                                          d, threads, st)
+             : launch<MinMax<true, false>>(vals, ids, block_ptr, plan,
+                                           n_chunks, chunk_e, out, partials,
+                                           counters, block_size,
+                                           num_segments, d, threads, st);
 }
 
 int seg_minmax_i32(const int* vals, const int* ids, const int* block_ptr,
-                   int* out, int n_blocks, int block_size, int num_segments,
-                   int d, int is_min, int threads, void* stream) {
-  const int ident_key = is_min ? 0x7fffffff : static_cast<int>(0x80000000u);
-  return launch_minmax<false>(vals, ids, block_ptr, out, n_blocks, block_size,
-                              num_segments, d, is_min, ident_key, threads,
-                              static_cast<cudaStream_t>(stream));
+                   const int* plan, int n_chunks, int chunk_e, int* out,
+                   int* partials, int* counters, int block_size,
+                   int num_segments, int d, int is_min, int threads,
+                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_min
+             ? launch<MinMax<false, true>>(vals, ids, block_ptr, plan,
+                                           n_chunks, chunk_e, out, partials,
+                                           counters, block_size,
+                                           num_segments, d, threads, st)
+             : launch<MinMax<false, false>>(vals, ids, block_ptr, plan,
+                                            n_chunks, chunk_e, out, partials,
+                                            counters, block_size,
+                                            num_segments, d, threads, st);
 }
 
 }  // extern "C"

@@ -2,7 +2,10 @@
 ``repro.kernels.segment_reduce.ops``).
 
 The segment ids and block offsets of an edge order are fixed, so the
-reducer takes them to the device once and reduces many times.  On the
+reducer takes them to the device once, with their chunk plan
+(:class:`~repro_torch.kernels.segment_reduce.kernel.ChunkPlan`: one CTA
+per chunk of at most ``CHUNK_E`` edges of one block), and reduces many
+times with launches only: no host sync, no copy to the host.  On the
 main path the values already come in the binned edge order, so the
 kernels read them as they are: the TPU path's tile gather
 (``ops.py:190-197``) is not needed.
@@ -15,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.segment_reduce.kernel import seg_minmax, seg_sum
+from repro_torch.kernels.segment_reduce.kernel import (CHUNK_E, ChunkPlan,
+                                                       seg_minmax, seg_sum)
 from repro_torch.kernels.segment_reduce.ref import identity
 
 __all__ = ["BlockedSegmentReducer", "TilingPlan", "DEFAULT_PLAN",
@@ -27,8 +31,8 @@ class TilingPlan:
     """One point of the blocked reducer's tuning space
     (``repro.kernels.segment_reduce.ops:22``).
 
-    - ``tile_e``: edges per tile; the CUDA kernels' CTA loop stride
-      (threads per CTA).
+    - ``tile_e``: edges per tile of the TPU plan; the CUDA kernels'
+      threads per CTA (a CTA reduces one chunk of the chunk plan).
     - ``block_mult``: output blocks cover ``block_mult`` base blocks.
     - ``block_div``: output blocks of ``base // block_div`` vertices,
       sound only for the fully dst-sorted pull order.
@@ -103,8 +107,12 @@ class BlockedSegmentReducer:
 
     ``segment_ids`` arrive binned by target block with ``block_ptr``
     giving per-block edge offsets, as :class:`~repro_torch.graph.Graph`
-    keeps them.  ``n_tiles`` is the size of the TPU tiling plan for the
-    same edges, kept for comparison with the reference.
+    keeps them.  ``chunks`` is their chunk plan on the device: a block's
+    edges are spread over CTAs of at most ``CHUNK_E`` edges each, and a
+    split block's partials are merged by the last of its CTAs, so calls
+    of one reducer must be ordered on one stream.  ``n_tiles`` is the
+    size of the TPU tiling plan for the same edges, kept for comparison
+    with the reference.
     """
 
     def __init__(self, segment_ids: np.ndarray, block_ptr: np.ndarray,
@@ -118,6 +126,7 @@ class BlockedSegmentReducer:
         self.segment_ids = torch.as_tensor(
             np.asarray(segment_ids, np.int32)).to(device)
         self.block_ptr = torch.as_tensor(block_ptr.astype(np.int32)).to(device)
+        self.chunks = ChunkPlan.build(block_ptr, CHUNK_E, device)
         self.tile_e = int(tile_e)
         self.num_segments = int(num_segments)
         self.block_size = int(block_size)
@@ -143,7 +152,7 @@ class BlockedSegmentReducer:
         out = fn(values[:, None] if squeeze else values.contiguous(),
                  self.segment_ids, self.block_ptr,
                  block_size=self.block_size, num_segments=self.num_segments,
-                 tile_e=self.tile_e, **kw)
+                 tile_e=self.tile_e, chunks=self.chunks, **kw)
         return out[:, 0] if squeeze else out
 
     def sum(self, values: torch.Tensor) -> torch.Tensor:

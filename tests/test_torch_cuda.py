@@ -9,7 +9,8 @@ PyTorch is installed:
 The kernels are held against their plain versions on the same inputs:
 K1/K2 min, max and int32 sum bit-equal, the float32 sum to
 rtol=atol=1e-5, since the kernel's shared-memory atomics add in an order
-that changes from run to run; K3 bit-equal at P = 1 and to 1e-5 for
+that changes from run to run (hubs, split blocks, empty blocks, float
+specials, wrapping sums and dirty-scratch checks included); K3 bit-equal at P = 1 and to 1e-5 for
 P > 1 and the mean (another order of the sum); K4 to atol 2e-3 in f32
 and, in bf16, to one bf16 step of the output (rtol 2**-7) plus atol 1e-2
 (online softmax against one pass, p rounded to bf16 at another running
@@ -25,8 +26,10 @@ from repro_torch.graph import powerlaw_graph
 from repro_torch.kernels.embedding_bag import embag, embedding_bag_ref
 from repro_torch.kernels.flash_attention import (attention, flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.segment_reduce import (seg_minmax, seg_minmax_plain,
-                                                seg_sum, seg_sum_plain)
+from repro_torch.kernels.segment_reduce import (BlockedSegmentReducer,
+                                                ChunkPlan, seg_minmax,
+                                                seg_minmax_plain, seg_sum,
+                                                seg_sum_plain)
 
 SWEEP = [(1000, 300, 64, 1), (4096, 512, 128, 8), (777, 100, 32, 5),
          (64, 512, 128, 1), (2048, 64, 64, 16)]
@@ -78,6 +81,164 @@ def test_kernels_match_plain_on_the_card(cuda_device, e, v, b, d, case):
         assert seg_minmax.launches == launches + 1
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+CASES = ["sum", "isum", "min", "max", "imin", "imax"]
+
+
+def _bin(raw, v, b, rng, sort):
+    """Edges of segment ids ``raw`` binned by block: sorted by id (the CSC
+    order) or in random order inside each block (the owned order)."""
+    raw = np.asarray(raw)
+    key = raw if sort else (raw // b) * len(raw) + rng.permutation(len(raw))
+    ids = raw[np.argsort(key, kind="stable")]
+    bp = np.zeros((v + b - 1) // b + 1, np.int64)
+    np.add.at(bp, raw // b + 1, 1)
+    return ids.astype(np.int32), np.cumsum(bp).astype(np.int32)
+
+
+def _kernel_and_plain(dev, case, vals, ids, bp, b, v, chunks=None):
+    """Run the kernel once (counting its launch) and the plain version on
+    the same inputs; returns both, synchronised."""
+    args = [torch.from_numpy(a).to(dev) for a in (vals, ids, bp)]
+    kw = dict(block_size=b, num_segments=v, chunks=chunks)
+    if case.endswith("sum"):
+        fn, plain = seg_sum, seg_sum_plain
+    else:
+        fn, plain = seg_minmax, seg_minmax_plain
+        kw["is_min"] = case.endswith("min")
+    launches = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == launches + 1
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _values_for(rng, case, e, d):
+    if case.startswith("i"):
+        return rng.integers(-10**6, 10**6, (e, d)).astype(np.int32)
+    if case == "sum":  # positive: rtol bounds any order of addition
+        return rng.uniform(1.0, 2.0, (e, d)).astype(np.float32)
+    return rng.standard_normal((e, d)).astype(np.float32)
+
+
+def _assert_match(case, got, want):
+    if case == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True], ids=["owned", "csc"])
+@pytest.mark.parametrize("case", CASES)
+def test_star_hub_matches_plain_on_the_card(cuda_device, sort, case):
+    """A hub with 200,000 in-edges: its block splits into many chunks,
+    and in the CSC order every warp sees one long run of its id."""
+    rng = np.random.default_rng(len(case) + sort)
+    v, b, hub = 5000, 256, 300
+    raw = np.concatenate([np.full(200_000, hub), rng.integers(0, v, 30_000)])
+    ids, bp = _bin(raw, v, b, rng, sort)
+    got, want = _kernel_and_plain(cuda_device, case,
+                                  _values_for(rng, case, len(ids), 1),
+                                  ids, bp, b, v)
+    _assert_match(case, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["one-block", "empty-between-heavy"])
+@pytest.mark.parametrize("d", [1, 5, 8, 16])
+@pytest.mark.parametrize("case", CASES)
+def test_skewed_blocks_match_plain_on_the_card(cuda_device, layout, d, case):
+    rng = np.random.default_rng(d * 7 + len(case))
+    v, b = 2048, 128
+    if layout == "one-block":  # every edge in block 3, the others empty
+        raw = rng.integers(3 * b, 4 * b, 60_000)
+    else:  # blocks 0, 4, 8, .. heavy; the blocks between them empty
+        heavy = rng.integers(0, v // (4 * b), 60_000) * 4 * b
+        raw = heavy + rng.integers(0, b, 60_000)
+    ids, bp = _bin(raw, v, b, rng, sort=False)
+    got, want = _kernel_and_plain(cuda_device, case,
+                                  _values_for(rng, case, len(ids), d),
+                                  ids, bp, b, v)
+    _assert_match(case, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("is_min", [True, False], ids=["min", "max"])
+def test_float_order_specials_match_plain_on_the_card(cuda_device, d,
+                                                      is_min):
+    """-0.0 below +0.0, a NaN above +inf (below -inf with its sign bit
+    set), bit for bit against the plain version's int32 keys."""
+    rng = np.random.default_rng(d)
+    v, b, e = 700, 64, 50_000
+    specials = np.array([0x00000000, 0x80000000, 0x7fc00000, 0xffc00000,
+                         0x7f800000, 0xff800000], np.uint32).view(np.float32)
+    vals = rng.standard_normal((e, d)).astype(np.float32)
+    pick = rng.random((e, d)) < 0.5
+    vals[pick] = rng.choice(specials, int(pick.sum()))
+    ids, bp = _bin(rng.integers(0, v, e), v, b, rng, sort=True)
+    got, want = _kernel_and_plain(cuda_device, "min" if is_min else "max",
+                                  vals, ids, bp, b, v)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True], ids=["owned", "csc"])
+def test_int32_sum_wraps_on_the_card(cuda_device, sort):
+    rng = np.random.default_rng(3)
+    v, b, e = 300, 64, 100_000
+    ids, bp = _bin(rng.integers(0, 20, e), v, b, rng, sort)
+    vals = rng.integers(2**30, 2**31 - 1, (e, 2)).astype(np.int32)
+    got, want = _kernel_and_plain(cuda_device, "isum", vals, ids, bp, b, v)
+    wrapped = np.zeros((v, 2), np.int32)
+    np.add.at(wrapped, ids, vals)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), wrapped)
+
+
+@pytest.mark.cuda
+def test_reducers_called_again_and_interleaved_agree(cuda_device):
+    """A split block's counter is reset and its partials are rewritten by
+    every call: the same reducer twice, and two reducers in turns, give
+    the first results again."""
+    rng = np.random.default_rng(11)
+    reducers, values = [], []
+    for v, b, e in ((4000, 256, 150_000), (9000, 128, 90_000)):
+        raw = np.where(rng.random(e) < 0.6, 5, rng.integers(0, v, e))
+        ids, bp = _bin(raw, v, b, rng, sort=True)
+        red = BlockedSegmentReducer(ids, bp, v, b, device=cuda_device)
+        assert red.chunks.n_slots > 0
+        reducers.append(red)
+        values.append(torch.from_numpy(
+            rng.integers(-2**31, 2**31, (e, 3)).astype(np.int32)).to(
+                cuda_device))
+    kinds = ("sum", "min", "max")
+    first = [[red.reduce(x, k) for k in kinds]
+             for red, x in zip(reducers, values)]
+    for _ in range(3):
+        for red, x, want in zip(reducers, values, first):
+            for k, w in zip(kinds, want):
+                assert torch.equal(red.reduce(x, k), w), k
+    torch.cuda.synchronize()
+    for red in reducers:
+        assert not red.chunks.counters.any()
+
+
+@pytest.mark.cuda
+def test_kernels_take_a_plan_of_any_chunk_size(cuda_device):
+    rng = np.random.default_rng(4)
+    v, b = 3000, 256
+    ids, bp = _bin(rng.integers(0, 40, 80_000), v, b, rng, sort=False)
+    vals = rng.integers(-10**6, 10**6, (len(ids), 4)).astype(np.int32)
+    for chunk_e in (1, 100, 2048, 10**6):
+        chunks = ChunkPlan.build(bp, chunk_e, cuda_device)
+        for case in ("isum", "imin", "imax"):
+            got, want = _kernel_and_plain(cuda_device, case, vals, ids, bp,
+                                          b, v, chunks=chunks)
+            assert torch.equal(got, want), (chunk_e, case)
 
 
 @pytest.mark.cuda

@@ -2,28 +2,34 @@
 
 The same binned edges, made from numpy seeds, go through the reference
 (its Pallas kernels in interpret mode, as its own tests run them) and
-through the port's plain path on the CPU.  min/max and int32 results
-must be bit-equal; float32 sums agree to atol=1e-5, because the tiled
-one-hot matmul of the reference and the port's scatter add the same
-terms in a different order.
+through the port's plain path on the CPU, which reduces chunk by chunk
+through the CUDA kernels' chunk plan.  min/max and int32 results must
+be bit-equal; float32 sums agree to atol=1e-5 (rtol=1e-5 where the
+terms are positive), because the tiled one-hot matmul of the reference
+and the port's scatter add the same terms in a different order.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hypothesis_compat import given, settings, st
 
 from repro.kernels.segment_reduce import BlockedSegmentReducer as JReducer
 from repro.kernels.segment_reduce import gathered_segment_reduce as j_gather
 from repro.kernels.segment_reduce.kernel import plan_tiles as j_plan_tiles
+from repro.kernels.segment_reduce.kernel import (seg_minmax_pallas,
+                                                 seg_sum_pallas)
 from repro_torch.core.config_space import Consistency
 from repro_torch.core.consistency import scheduled_reduce
 from repro_torch.core.vertex_program import Monoid
+from repro_torch.graph import powerlaw_graph
+from repro_torch.kernels.autotune import build_reducer
 from repro_torch.kernels.segment_reduce import (BlockedSegmentReducer,
-                                                TilingPlan,
+                                                ChunkPlan, TilingPlan,
                                                 gathered_segment_reduce,
-                                                plan_tiles, seg_minmax,
-                                                seg_minmax_plain, seg_sum,
-                                                seg_sum_plain,
+                                                plan_chunks, plan_tiles,
+                                                seg_minmax, seg_minmax_plain,
+                                                seg_sum, seg_sum_plain,
                                                 segment_reduce_ref)
 
 SWEEP = [(1000, 300, 64, 1), (4096, 512, 128, 8), (777, 100, 32, 5),
@@ -175,6 +181,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         seg_sum(torch.ones(100, 1), ids_t, bp_t, tile_e=48, **kw)
     with pytest.raises(TypeError, match="segment_ids"):
         seg_sum(torch.ones(100, 1), ids_t.long(), bp_t, **kw)
+    with pytest.raises(ValueError, match="chunk plan reads"):
+        seg_sum(torch.ones(100, 1), ids_t, bp_t, **kw,
+                chunks=ChunkPlan.build(np.array([0, 60, 101])))
+    with pytest.raises(ValueError, match="chunk plan covers"):
+        seg_minmax(torch.ones(100, 1), ids_t, bp_t, is_min=True, **kw,
+                   chunks=ChunkPlan.build(np.array([0, 100])))
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
@@ -223,3 +235,215 @@ def test_reducers_without_device_need_cuda():
         build_reducer(g, "pull")
     assert build_reducer(g, "owned", device="cpu").segment_ids.device.type \
         == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the chunk plan of the CUDA kernels, and the plain path that follows it
+# ---------------------------------------------------------------------------
+def _check_chunk_plan(block_ptr, chunk_e):
+    """Every property the kernels rely on, for one plan."""
+    block_ptr = np.asarray(block_ptr, np.int64)
+    block, start, end, index, slot = plan_chunks(block_ptr, chunk_e)
+    n_blocks = block_ptr.shape[0] - 1
+    for a in (block, start, end, index, slot):
+        assert a.dtype == np.int32 and a.shape == block.shape
+    # every block has chunks, in block order, each inside its block
+    np.testing.assert_array_equal(np.unique(block), np.arange(n_blocks))
+    assert np.all(np.diff(block) >= 0)
+    assert np.all(start >= block_ptr[block])
+    assert np.all(end <= block_ptr[block + 1])
+    assert np.all(end - start <= chunk_e) and np.all(end >= start)
+    # every edge exactly once: the chunks tile the edge range in order
+    if block.size:
+        assert start[0] == block_ptr[0] and end[-1] == block_ptr[-1]
+        np.testing.assert_array_equal(start[1:], end[:-1])
+    # an empty block keeps one (empty) chunk; a full chunk is never empty
+    per_block = np.bincount(block, minlength=n_blocks)
+    empty = np.diff(block_ptr) == 0
+    assert np.all(per_block[empty] == 1)
+    assert np.all((end > start) | empty[block])
+    # index counts a block's chunks from 0; slots are dense, unique and
+    # consecutive within a split block, -1 for a block of one chunk
+    first = np.cumsum(per_block) - per_block
+    np.testing.assert_array_equal(index, np.arange(block.size)
+                                  - first[block])
+    split = per_block[block] > 1
+    assert np.all(slot[~split] == -1)
+    np.testing.assert_array_equal(slot[split], np.arange(split.sum()))
+    assert np.all(np.diff(block_ptr)[per_block > 1] > chunk_e)
+    return block, start, end, index, slot
+
+
+@given(st.integers(0, 2**31 - 1), st.integers(0, 40), st.integers(1, 300),
+       st.integers(0, 3000))
+@settings(max_examples=40, deadline=None)
+def test_plan_chunks_properties(seed, n_blocks, chunk_e, heavy):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 60, n_blocks)
+    counts[rng.random(n_blocks) < 0.3] = 0          # empty blocks
+    if n_blocks:
+        counts[rng.integers(0, n_blocks)] = heavy    # one hub block
+    _check_chunk_plan(np.concatenate([[0], np.cumsum(counts)]), chunk_e)
+
+
+@pytest.mark.parametrize("block_ptr", [
+    [0], [0, 0], [0, 0, 0, 0],                       # no edges at all
+    [0, 1000], [0, 0, 1000, 1000],                   # one block holds all
+    [0, 500, 500, 500, 900, 900, 1300],              # empty between heavy
+], ids=["no-blocks", "one-empty", "all-empty", "one-block", "one-of-three",
+        "empty-between-heavy"])
+@pytest.mark.parametrize("chunk_e", [1, 7, 256, 5000])
+def test_plan_chunks_edge_cases(block_ptr, chunk_e):
+    block, start, end, _, slot = _check_chunk_plan(block_ptr, chunk_e)
+    counts = np.diff(block_ptr)
+    if chunk_e == 1:  # one chunk per edge; every block of 2+ edges splits
+        assert (slot >= 0).sum() == counts[counts > 1].sum()
+    if chunk_e > block_ptr[-1]:  # larger than E: one chunk per block
+        assert block.size == len(block_ptr) - 1 and np.all(slot == -1)
+    assert ChunkPlan.build(np.asarray(block_ptr), chunk_e).n_chunks \
+        == block.size
+
+
+def test_plan_chunks_rejects_what_the_kernels_cannot_index():
+    with pytest.raises(ValueError, match="chunk_e"):
+        plan_chunks(np.array([0, 10]), 0)
+    with pytest.raises(ValueError, match="int32"):
+        plan_chunks(np.array([0, 2**31]), 4096)
+
+
+#: A degree-sorted power-law graph: its hubs share block 0, which the
+#: chunk plan below splits into several chunks
+SKEWED = dict(n=1500, n_edges=9000, alpha=1.1, max_degree=400,
+              degree_order="sorted", seed=5, weighted=True, block_size=64)
+SKEWED_CHUNK_E = 256
+SKEWED_TILE_E = 128
+
+
+def _pallas_blocked(vals, ids, bp, bs, v, kind):
+    """The reference's Pallas kernels in interpret mode over its tiling
+    plan of the same binned edges (as its BlockedSegmentReducer runs
+    them)."""
+    gather, tbid, tfirst = j_plan_tiles(bp, SKEWED_TILE_E)
+    pad = gather < 0
+    safe = np.where(pad, 0, gather)
+    lids = np.where(pad, -1, ids[safe] - tbid[:, None] * bs).astype(np.int32)
+    tiled = vals[safe]
+    n_out = -(-v // bs)
+    args = (jnp.asarray(tiled), jnp.asarray(lids), jnp.asarray(tbid),
+            jnp.asarray(tfirst))
+    if kind == "sum":
+        out = seg_sum_pallas(*args, block_size=bs, num_out_blocks=n_out,
+                             interpret=True)
+    else:
+        out = seg_minmax_pallas(*args, block_size=bs, num_out_blocks=n_out,
+                                is_min=kind == "min", interpret=True)
+    return np.asarray(out)[:v]
+
+
+@pytest.mark.parametrize("order", ["owned", "pull"])
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype,d", [("float32", 1), ("float32", 3),
+                                     ("int32", 1), ("int32", 3)])
+def test_chunked_plain_matches_pallas_on_a_skewed_graph(order, kind, dtype,
+                                                        d):
+    red = build_reducer(powerlaw_graph(**SKEWED), order, device="cpu")
+    ids, bp = red.segment_ids.numpy(), red.block_ptr.numpy()
+    chunks = ChunkPlan.build(bp, SKEWED_CHUNK_E)
+    block = chunks.table[0].numpy()
+    assert (block == 0).sum() >= 4, "block 0 must split into chunks"
+    rng = np.random.default_rng(len(order) * 10 + d)
+    if kind == "sum" and dtype == "float32":
+        # positive terms: the relative tolerance then bounds the error of
+        # any order of addition (terms that cancel would not)
+        vals = rng.uniform(1.0, 2.0, (ids.shape[0], d)).astype(np.float32)
+    else:
+        vals = _values(rng, ids.shape[0], d, dtype).reshape(ids.shape[0], d)
+    kw = dict(block_size=red.block_size, num_segments=red.num_segments,
+              chunks=chunks)
+    args = (torch.from_numpy(vals), red.segment_ids, red.block_ptr)
+    if kind == "sum":
+        got = seg_sum_plain(*args, **kw).numpy()
+    else:
+        got = seg_minmax_plain(*args, is_min=kind == "min", **kw).numpy()
+    want = _pallas_blocked(vals, ids, bp, red.block_size, red.num_segments,
+                           kind)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if kind == "sum" and dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("chunk_e", [1, 3, 64, 10**6])
+def test_chunked_plain_does_not_depend_on_the_chunk_size(chunk_e):
+    rng = np.random.default_rng(chunk_e)
+    ids, bp = _binned(rng, 1200, 500, 64)
+    ids_t = torch.from_numpy(ids.astype(np.int32))
+    bp_t = torch.from_numpy(bp.astype(np.int32))
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, (1200, 2))
+                            .astype(np.int32))
+    kw = dict(block_size=64, num_segments=500)
+    chunks = ChunkPlan.build(bp, chunk_e)
+    for kind in ("sum", "min", "max"):
+        want = segment_reduce_ref(vals, ids_t, 500, kind)
+        if kind == "sum":
+            got = seg_sum(vals, ids_t, bp_t, chunks=chunks, **kw)
+        else:
+            got = seg_minmax(vals, ids_t, bp_t, is_min=kind == "min",
+                             chunks=chunks, **kw)
+        assert torch.equal(got, want), kind
+
+
+def test_plain_minmax_orders_floats_as_the_kernels_do():
+    """-0.0 below +0.0 and a NaN (sign bit clear) above +inf, through the
+    kernels' int32 keys; empty rows keep +-inf."""
+    nan = float("nan")
+    vals = torch.tensor([[0.0], [-0.0], [nan], [float("inf")],
+                         [float("-inf")], [1.0], [nan], [-0.0]])
+    ids = torch.tensor([0, 0, 1, 1, 2, 2, 3, 4], dtype=torch.int32)
+    bp = torch.tensor([0, 4, 7, 8], dtype=torch.int32)
+    kw = dict(block_size=2, num_segments=6)
+    lo = seg_minmax(vals, ids, bp, is_min=True, **kw)[:, 0]
+    hi = seg_minmax(vals, ids, bp, is_min=False, **kw)[:, 0]
+    assert torch.signbit(lo[0]) and not torch.signbit(hi[0])
+    assert lo[1] == float("inf") and torch.isnan(hi[1])
+    assert lo[2] == float("-inf") and hi[2] == 1.0
+    # a row reached only by a NaN: the identity +inf sorts below it
+    assert lo[3] == float("inf") and torch.isnan(hi[3])
+    assert torch.signbit(lo[4]) and torch.signbit(hi[4])
+    assert lo[5] == float("inf") and hi[5] == float("-inf")
+
+
+def test_reducer_keeps_its_chunk_plan_on_its_device():
+    ids, bp = _binned(np.random.default_rng(9), 5000, 300, 32)
+    red = BlockedSegmentReducer(ids, bp, 300, 32, device="cpu")
+    block, start, end, index, slot = plan_chunks(bp)
+    np.testing.assert_array_equal(red.chunks.table.numpy(),
+                                  np.stack([block, start, end, index, slot]))
+    assert red.chunks.counters.shape == (len(bp) - 1,)
+    assert not red.chunks.counters.any()
+
+
+@pytest.mark.parametrize("kind", ["min", "max"])
+def test_float_minmax_differs_from_the_reference_only_on_nan_rows(kind):
+    """The reference's min/max propagate a NaN; the port's kernels, and so
+    its plain path, order floats by int32 keys, in which a NaN sorts
+    above +inf (sign bit clear) or below -inf (set).  Signed zeros and
+    every row without a NaN agree bit for bit."""
+    rng = np.random.default_rng(17)
+    e, v, b = 3000, 200, 64
+    ids, bp = _binned(rng, e, v, b)
+    specials = np.array([0x00000000, 0x80000000, 0x7fc00000, 0xffc00000,
+                         0x7f800000, 0xff800000], np.uint32).view(np.float32)
+    vals = rng.standard_normal(e).astype(np.float32)
+    pick = rng.random(e) < 0.02
+    vals[pick] = rng.choice(specials, int(pick.sum()))
+    ref = np.asarray(JReducer(ids, bp, v, b).reduce(jnp.asarray(vals), kind))
+    got = BlockedSegmentReducer(ids, bp, v, b, device="cpu").reduce(
+        torch.from_numpy(vals), kind).numpy()
+    nan_rows = np.zeros(v, bool)
+    nan_rows[ids[np.isnan(vals)]] = True
+    assert nan_rows.any() and not nan_rows.all()
+    assert np.isnan(ref[nan_rows]).all()
+    np.testing.assert_array_equal(got[~nan_rows].view(np.int32),
+                                  ref[~nan_rows].view(np.int32))
