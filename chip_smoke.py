@@ -36,10 +36,14 @@ script exits non-zero:
      B=65,536 (rtol=atol=1e-5); ``F.embedding_bag``.
    - K4 at starcoder2-7b widths (Hq=36, Hkv=4, D=128, B=1): bf16 causal
      Sq=Sk=4,096 and causal suffix Sq=512, Sk=4,096 (atol=1e-2 plus
-     rtol=2**-7, one bf16 step of the output), f32 full Sq=Sk=1,024
-     (atol=2e-3); ``F.scaled_dot_product_attention`` with
-     ``enable_gqa=True``, its causal mask aligned to the end as K4's is
-     (``causal_lower_right``), held to the same tolerance.
+     rtol=2**-7, one bf16 step of the output) on the tensor-core kernel,
+     f32 full Sq=Sk=1,024 (atol=2e-3) on the CUDA-core kernel, each row
+     naming its kernel with its registers and shared memory;
+     ``F.scaled_dot_product_attention`` with ``enable_gqa=True``, its
+     causal mask aligned to the end as K4's is (``causal_lower_right``),
+     held to the same tolerance.
+   Every row carries ``bound_share`` (the bound over the kernel's time)
+   and ``library_over_ms`` (the library call's time over the kernel's).
 4. graph path: with the K1/K2 counts set to 0, run BFS, SSSP and
    PageRank through ``repro_torch.core.run`` with ``use_kernels=True``
    under SD1 (owned kernel), TG0 (pull kernel) and DD1 (both kernels
@@ -198,14 +202,18 @@ def _row(name, kernel, got_err, ms, plain_ms, library_ms, moved, ops,
          ops_per_s, **extra) -> dict:
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     row = dict(name=name, kernel=kernel, route="cuda", source=SOURCES[kernel],
                replaces=REPLACES[kernel], launches=0, max_abs_err=got_err,
-               ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               library_ms=library_ms, bytes=moved, ops=ops, **extra)
+               library_ms=library_ms, library_over_ms=(
+                   None if library_ms is None else library_ms / ms),
+               bound_share=bound_ms / ms, bytes=moved, ops=ops, **extra)
     log(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms} bound_ms={row['bound_ms']:.4f} "
-        f"({row['bound_by']}) max_abs_err={got_err}")
+        f"library_ms={library_ms} bound_ms={bound_ms:.4f} "
+        f"({row['bound_by']}) library_over_ms={row['library_over_ms']} "
+        f"bound_share={row['bound_share']:.3f} max_abs_err={got_err}")
     return row
 
 
@@ -266,10 +274,15 @@ def attention_rows(dev, flush) -> list:
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     kernel_info)
     gen = torch.Generator(device=dev).manual_seed(13)
     rows = []
     for sq, sk, causal, dtype in ATTN_CASES:
+        info = kernel_info(dtype, SC2_D)
+        log(f"flash_attention {str(dtype)[6:]} D={SC2_D}: {info['kernel']}, "
+            f"{info['registers']} registers, {info['shared_bytes']} bytes "
+            "of shared memory")
         q, k, v = _qkv(gen, dev, sq, sk, dtype)
         kernel = lambda: flash_attention(q, k, v, causal=causal)
         plain = lambda: flash_attention_plain(q, k, v, causal=causal)
@@ -300,7 +313,9 @@ def attention_rows(dev, flush) -> list:
             "flash_attention", err, time_ms(kernel, flush),
             time_ms(plain, flush), library_ms, moved, ops,
             BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S,
-            library_max_abs_err=library_err, sq=sq, sk=sk, causal=causal))
+            library_max_abs_err=library_err, sq=sq, sk=sk, causal=causal,
+            k4_kernel=info["kernel"], registers=info["registers"],
+            shared_bytes=info["shared_bytes"]))
         del q, k, v, got, want, lib_out
     return rows
 

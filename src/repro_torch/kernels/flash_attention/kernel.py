@@ -1,12 +1,15 @@
 """Flash attention forward (GQA, causal or full) on the GPU
 (counterpart of ``repro.kernels.flash_attention.kernel``).
 
-:func:`flash_attention` launches the hand-written CUDA kernel of
+:func:`flash_attention` launches a hand-written CUDA kernel of
 ``csrc/flash_attention.cu``, which replaces the Pallas kernel
 ``flash_attention`` (``kernel.py:68-101``): blocked attention with an
 online softmax, f32 running max, normaliser and accumulator, and the
-kv head of q head h at ``h // (Hq / Hkv)``.  It keeps the TPU kernel's
-rules:
+kv head of q head h at ``h // (Hq / Hkv)``.  The inputs' type picks the
+kernel: bfloat16 runs on the tensor cores (``wgmma`` for Q.K^T and P.V,
+Q, K and V tiles brought by TMA, ``csrc/flash_attention_sm90.cuh``),
+float32 on the CUDA cores (TF32 would change the numbers).  Both keep
+the TPU kernel's rules:
 
 - a masked score is ``-1e30``, not ``-inf``, so a causal row with no
   visible key (Sq > Sk) is the uniform average of V, where ``gqa_ref``
@@ -23,7 +26,8 @@ Beside it is its plain PyTorch version, :func:`flash_attention_plain`,
 which computes the same function in one pass.  The wrapper runs the
 plain version only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises.  It counts its launches in
-``flash_attention.launches``.
+``flash_attention.launches``.  :func:`kernel_info` names the kernel that
+a type and head size launch, with its registers and shared memory.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ import torch
 
 from repro_torch.kernels._build import load
 
-__all__ = ["flash_attention", "flash_attention_plain", "SOURCE",
-           "HEAD_DIMS", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_plain", "kernel_info",
+           "SOURCE", "HEAD_DIMS", "NEG_INF"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: Head sizes the kernel is compiled for.
@@ -52,7 +56,25 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                         ctypes.c_float, p]
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_kernel_info.argtypes = [i, i, p, p]
+    lib.flash_attention_kernel_info.restype = ctypes.c_int
     return lib
+
+
+def kernel_info(dtype: torch.dtype, d: int) -> dict:
+    """The kernel that :func:`flash_attention` launches for ``dtype`` and
+    head size ``d`` on the card: its name, registers per thread at launch
+    and shared memory per CTA in bytes."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    bf16 = dtype == torch.bfloat16
+    err = _library().flash_attention_kernel_info(
+        d, int(bf16), ctypes.byref(regs), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"flash_attention: no kernel for {dtype}, head "
+                           f"size {d} (CUDA error {err})")
+    name = ("flash_fwd_sm90 (bf16, wgmma + TMA)" if bf16
+            else "flash_fwd_kernel (f32, CUDA cores)")
+    return dict(kernel=name, registers=regs.value, shared_bytes=smem.value)
 
 
 def _check(q, k, v) -> None:
@@ -91,6 +113,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head size {d} is not one of "
                          f"{HEAD_DIMS}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} starts at an "
+                                 "address that is not 16-byte aligned, "
+                                 "which TMA cannot load")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

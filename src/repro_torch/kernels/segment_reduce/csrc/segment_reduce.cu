@@ -52,12 +52,14 @@
 //
 // Exactness.  min and max are independent of the order of the updates,
 // so both are bit-exact.  Floats are ordered through an order-preserving
-// map onto int32 (atomicMin/atomicMax on the key): a total order in which
-// -0.0 sorts below +0.0 and a NaN with the sign bit clear sorts above
-// +inf.  The int32 sum is exact (it wraps as two's complement does, in
-// any order).  The float sum is not order independent: the scan's order
-// is fixed, but the shared-memory atomics of the warps land in an order
-// that changes from run to run, so the f32 sum is run-dependent.
+// map onto int32 (atomicMin/atomicMax on the key) in which -0.0 sorts
+// below +0.0.  A NaN, whatever its sign bit, takes the extreme key of the
+// reduction (INT_MAX for max, INT_MIN for min), so a row that holds a NaN
+// comes out NaN, as jax.ops.segment_min/max give it.  The int32 sum is
+// exact (it wraps as two's complement does, in any order).  The float
+// sum is not order independent: the scan's order is fixed, but the
+// shared-memory atomics of the warps land in an order that changes from
+// run to run, so the f32 sum is run-dependent.
 //
 // Each entry point launches on the caller's stream, allocates nothing
 // (out, the partials and the counters come from the caller), and returns
@@ -73,7 +75,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // warp steps whose loads a thread issues before it reduces them
 constexpr int kUnroll = 4;
 
+// The key of a float for a min (IS_MIN) or a max: a NaN wins either.
+template <bool IS_MIN>
 __device__ __forceinline__ int float_key(float f) {
+  if (f != f) return IS_MIN ? INT_MIN : INT_MAX;  // a NaN
   const int bits = __float_as_int(f);
   return bits >= 0 ? bits : bits ^ 0x7fffffff;
 }
@@ -112,7 +117,9 @@ struct SumI32 {
 };
 
 // Min or max over int32 keys.  For int32 values the key is the value;
-// for float32 values (passed as their bits) it is float_key(value).
+// for float32 values (passed as their bits) it is float_key(value).  The
+// keys of a NaN map back to a NaN: INT_MAX to 0x7fffffff, INT_MIN to
+// 0xffffffff.
 template <bool IS_FLOAT, bool IS_MIN>
 struct MinMax {
   using In = int;
@@ -123,7 +130,7 @@ struct MinMax {
     return IS_MIN ? INT_MAX : INT_MIN;
   }
   static __device__ __forceinline__ Acc from(In v) {
-    return IS_FLOAT ? float_key(__int_as_float(v)) : v;
+    return IS_FLOAT ? float_key<IS_MIN>(__int_as_float(v)) : v;
   }
   static __device__ __forceinline__ In to(Acc a) {
     return IS_FLOAT ? __float_as_int(key_float(a)) : a;

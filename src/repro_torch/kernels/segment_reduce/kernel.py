@@ -304,8 +304,9 @@ def seg_minmax(values: torch.Tensor, segment_ids: torch.Tensor,
                chunks: "ChunkPlan | None" = None) -> torch.Tensor:
     """Blocked segment min (``is_min``) or max of float32 or int32
     ``values [E, D]`` into ``[num_segments, D]``; bit-exact.  Floats are
-    ordered totally: -0.0 below +0.0, a NaN with the sign bit clear above
-    +inf.  ``chunks`` as for :func:`seg_sum`."""
+    ordered with -0.0 below +0.0, and a row that holds a NaN comes out
+    NaN, as ``jax.ops.segment_min``/``segment_max`` give it.  ``chunks``
+    as for :func:`seg_sum`."""
     n_blocks = _check("seg_minmax", values, segment_ids, block_ptr,
                       block_size, num_segments, tile_e,
                       (torch.float32, torch.int32))
@@ -335,9 +336,19 @@ seg_minmax.launches = 0
 # ---------------------------------------------------------------------------
 def _flip(bits: torch.Tensor) -> torch.Tensor:
     """The kernels' order-preserving map between float32 bits and int32
-    keys (its own inverse): -0.0 below +0.0, a NaN with the sign bit clear
-    above +inf."""
+    keys, -0.0 below +0.0; its own inverse.  A key made by :func:`_key`
+    for a NaN maps back to a NaN (0x7fffffff and 0xffffffff)."""
     return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def _key(values: torch.Tensor, kind: str) -> torch.Tensor:
+    """The kernels' int32 key of float32 ``values`` for a min or a max:
+    :func:`_flip` of the bits, and for a NaN, whatever its sign bit, the
+    extreme key of the reduction, so that the NaN wins."""
+    nan_key = torch.iinfo(torch.int32).min if kind == "min" else \
+        torch.iinfo(torch.int32).max
+    return torch.where(torch.isnan(values), nan_key,
+                       _flip(values.view(torch.int32)))
 
 
 def _plain(values, segment_ids, block_ptr, block_size, num_segments,
@@ -348,15 +359,15 @@ def _plain(values, segment_ids, block_ptr, block_size, num_segments,
     ``[block_size, D]`` partial (ids outside the chunk's block are
     dropped, as the TPU kernel's one-hot drops them), then combines the
     partials of each block in chunk order.  Float min/max run on the
-    kernels' int32 keys, so they follow the same total order.
+    kernels' int32 keys, so they follow the same order and NaN rule.
     """
     chunks = chunks if chunks is not None else ChunkPlan.build(
         block_ptr, device=values.device)
     dev, d = values.device, values.shape[1]
     keyed = kind != "sum" and values.dtype == torch.float32
-    vals = _flip(values.view(torch.int32)) if keyed else values
+    vals = _key(values, kind) if keyed else values
     ident = torch.tensor(identity(kind, values.dtype), dtype=values.dtype)
-    ident = (_flip(ident.view(torch.int32)) if keyed else ident).item()
+    ident = (_key(ident, kind) if keyed else ident).item()
     n_blocks = block_ptr.shape[0] - 1
     block, start, end, _, _ = chunks.table.to(dev).long()
     n_chunks = block.shape[0]

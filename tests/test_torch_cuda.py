@@ -170,8 +170,9 @@ def test_skewed_blocks_match_plain_on_the_card(cuda_device, layout, d, case):
 @pytest.mark.parametrize("is_min", [True, False], ids=["min", "max"])
 def test_float_order_specials_match_plain_on_the_card(cuda_device, d,
                                                       is_min):
-    """-0.0 below +0.0, a NaN above +inf (below -inf with its sign bit
-    set), bit for bit against the plain version's int32 keys."""
+    """-0.0 below +0.0, and a NaN of either sign wins (a NaN row comes
+    out 0x7fffffff for max, 0xffffffff for min), bit for bit against the
+    plain version's int32 keys."""
     rng = np.random.default_rng(d)
     v, b, e = 700, 64, 50_000
     specials = np.array([0x00000000, 0x80000000, 0x7fc00000, 0xffc00000,
@@ -183,6 +184,9 @@ def test_float_order_specials_match_plain_on_the_card(cuda_device, d,
     got, want = _kernel_and_plain(cuda_device, "min" if is_min else "max",
                                   vals, ids, bp, b, v)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    has_nan = np.zeros((v, d), bool)
+    np.logical_or.at(has_nan, ids, np.isnan(vals))
+    np.testing.assert_array_equal(torch.isnan(got).cpu().numpy(), has_nan)
 
 
 @pytest.mark.cuda
@@ -313,3 +317,73 @@ def test_flash_attention_matches_plain_on_the_card(cuda_device, b, hq, hkv,
     tol = (dict(rtol=0.0, atol=2e-3) if dtype == torch.float32
            else dict(rtol=2**-7, atol=1e-2))
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+BF16_TOL = dict(rtol=2**-7, atol=1e-2)
+
+
+def _bf16_qkv(dev, rng, b, hq, hkv, sq, sk, d):
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev, torch.bfloat16)
+            for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal", [
+    (1, 2, 2, 100, 100, True), (2, 6, 2, 72, 200, True),
+    (1, 9, 1, 129, 257, True), (2, 3, 1, 129, 257, False),
+    (1, 2, 1, 200, 72, True), (1, 4, 4, 300, 129, True),
+    (1, 2, 2, 512, 512, True)],
+    ids=["100x100", "72x200-b2-g3", "129x257-g9", "129x257-full",
+         "200x72-sq>sk", "300x129-sq>sk", "512x512"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_bf16_tensor_core_path(cuda_device, b, hq, hkv, sq,
+                                               sk, causal, d):
+    """The bf16 kernel (wgmma, TMA) at every head size, ragged Sq and Sk,
+    rows that see no key (causal, Sq > Sk), B = 2 and GQA groups 1, 3, 9,
+    against the plain version at one bf16 step plus 1e-2."""
+    rng = np.random.default_rng(1000 * d + sq + sk)
+    q, k, v = _bf16_qkv(cuda_device, rng, b, hq, hkv, sq, sk, d)
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == launches + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_bf16_stays_inside_its_head(cuda_device, d, causal):
+    """Sk = 200 and Sq = 100 are not multiples of the 128-row tiles, so a
+    tile of kv head 0 runs past its last key and a tile of a q head past
+    its last row.  kv head 1 (and the q heads that read it) hold inf and
+    NaN: the q heads of kv head 0 must come out finite and equal to the
+    plain version on head 0 alone, as they do only if the loads are
+    clipped at the head and zero-filled."""
+    rng = np.random.default_rng(d)
+    q, k, v = _bf16_qkv(cuda_device, rng, 1, 4, 2, 100, 200, d)
+    q[:, 2:], k[:, 1], v[:, 1] = float("nan"), float("inf"), float("nan")
+    k[:, 1, ::2] = float("-inf")
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q[:, :2], k[:, :1], v[:, :1], causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:, :2]).all()
+    torch.testing.assert_close(got[:, :2].float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refuses_a_misaligned_view(cuda_device):
+    """TMA loads from 16-byte aligned addresses only: a contiguous view
+    that starts one element into its storage is refused, not launched."""
+    rng = np.random.default_rng(0)
+    q, k, v = _bf16_qkv(cuda_device, rng, 1, 2, 1, 64, 64, 64)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape).copy_(q)
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(shifted, k, v)
+    assert flash_attention.launches == launches

@@ -395,21 +395,22 @@ def test_chunked_plain_does_not_depend_on_the_chunk_size(chunk_e):
 
 
 def test_plain_minmax_orders_floats_as_the_kernels_do():
-    """-0.0 below +0.0 and a NaN (sign bit clear) above +inf, through the
-    kernels' int32 keys; empty rows keep +-inf."""
+    """-0.0 below +0.0 through the kernels' int32 keys; a NaN of either
+    sign wins both min and max; empty rows keep +-inf."""
     nan = float("nan")
     vals = torch.tensor([[0.0], [-0.0], [nan], [float("inf")],
-                         [float("-inf")], [1.0], [nan], [-0.0]])
+                         [float("-inf")], [1.0], [-nan], [-0.0]])
     ids = torch.tensor([0, 0, 1, 1, 2, 2, 3, 4], dtype=torch.int32)
     bp = torch.tensor([0, 4, 7, 8], dtype=torch.int32)
     kw = dict(block_size=2, num_segments=6)
     lo = seg_minmax(vals, ids, bp, is_min=True, **kw)[:, 0]
     hi = seg_minmax(vals, ids, bp, is_min=False, **kw)[:, 0]
     assert torch.signbit(lo[0]) and not torch.signbit(hi[0])
-    assert lo[1] == float("inf") and torch.isnan(hi[1])
+    assert torch.isnan(lo[1]) and torch.isnan(hi[1])
     assert lo[2] == float("-inf") and hi[2] == 1.0
-    # a row reached only by a NaN: the identity +inf sorts below it
-    assert lo[3] == float("inf") and torch.isnan(hi[3])
+    # a row reached only by a NaN with its sign bit set
+    assert torch.signbit(vals[6, 0])
+    assert torch.isnan(lo[3]) and torch.isnan(hi[3])
     assert torch.signbit(lo[4]) and torch.signbit(hi[4])
     assert lo[5] == float("inf") and hi[5] == float("-inf")
 
@@ -425,11 +426,11 @@ def test_reducer_keeps_its_chunk_plan_on_its_device():
 
 
 @pytest.mark.parametrize("kind", ["min", "max"])
-def test_float_minmax_differs_from_the_reference_only_on_nan_rows(kind):
-    """The reference's min/max propagate a NaN; the port's kernels, and so
-    its plain path, order floats by int32 keys, in which a NaN sorts
-    above +inf (sign bit clear) or below -inf (set).  Signed zeros and
-    every row without a NaN agree bit for bit."""
+def test_float_minmax_matches_the_reference_nan_rows_included(kind):
+    """The reference's min/max propagate a NaN, and so do the port's
+    kernels and its plain path: a NaN of either sign takes the extreme
+    int32 key of the reduction.  Every row with a NaN is NaN in both;
+    signed zeros and every other row agree bit for bit."""
     rng = np.random.default_rng(17)
     e, v, b = 3000, 200, 64
     ids, bp = _binned(rng, e, v, b)
@@ -444,6 +445,7 @@ def test_float_minmax_differs_from_the_reference_only_on_nan_rows(kind):
     nan_rows = np.zeros(v, bool)
     nan_rows[ids[np.isnan(vals)]] = True
     assert nan_rows.any() and not nan_rows.all()
-    assert np.isnan(ref[nan_rows]).all()
+    assert np.isnan(ref[nan_rows]).all() and np.isnan(got[nan_rows]).all()
+    assert not np.isnan(ref[~nan_rows]).any()
     np.testing.assert_array_equal(got[~nan_rows].view(np.int32),
                                   ref[~nan_rows].view(np.int32))
