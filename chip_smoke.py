@@ -60,14 +60,24 @@ script exits non-zero:
    untimed warm-up request (the first request of a shape pays the
    allocator's first ``cudaMalloc`` of its activations), then 8 timed
    serve_p99 requests (batch 512), 4 serve_bulk (262,144) and 4
-   retrieval_cand (one query, 1,000,448 candidates); require 26 K3
-   launches per forward and finite outputs of the expected shapes,
-   logits bit-equal to the plain embedding bag's for one 512 batch, and
-   the first 16 logits and 4,096 scores within 1e-4 of a float64 numpy
-   reference.  Each timed request is timed with CUDA events around it
-   (device time, host gaps included) and with the host clock until the
-   call returns (its issue time); the median and the slowest are
-   printed.
+   retrieval_cand (one query, 1,000,448 candidates); require one K3
+   launch per serve_p99/serve_bulk forward (all 26 tables pooled into
+   the interaction's input), none per retrieval_cand, and finite
+   outputs of the expected shapes, logits bit-equal to the plain
+   embedding bag's for one 512 batch, and the first 16 logits and 4,096
+   scores within 1e-4 of a float64 numpy reference.  Each timed request
+   is timed with CUDA events around it (device time, host gaps
+   included) and with the host clock until the call returns (its issue
+   time); the median and the slowest are printed.  Then, uncounted:
+   - the table-batched K3 on the model's own 26 tables at B=512 and
+     B=262,144, bit-equal to ``embedding_bags_ref``; timed against the
+     plain version, 26 ``F.embedding_bag`` calls (the library time) and
+     the per-table path (26 single-table launches and ``torch.stack``),
+     each with its host issue time; its bound counts each table's
+     distinct rows once; its launch variants (items per warp x threads
+     per CTA), each bit-equal first, timed in the same run;
+   - one more request per cell under ``torch.profiler``: the top 8
+     device ops by time, the device's busy time and its idle share.
 6. attention: with the K4 count set to 0, call ``attention`` at
    starcoder2-7b widths (bf16 causal, Sq=Sk=4,096); require a K4
    launch and agreement with the plain version (K4's bf16 tolerance).
@@ -146,6 +156,11 @@ ATTN_TOL = {torch.float32: dict(rtol=0.0, atol=2e-3),
             torch.bfloat16: dict(rtol=2**-7, atol=1e-2)}
 #: DLRM serving: timed requests per cell, after one untimed warm-up each
 DLRM_REQUESTS = {"serve_p99": 8, "serve_bulk": 4, "retrieval_cand": 4}
+#: the table-batched K3's launch variants: (items per warp, threads per
+#: CTA)
+EMBAG_VARIANTS = [(g, t) for g in (1, 2, 4) for t in (128, 256)]
+#: device ops printed per profiled request
+PROFILE_TOP = 8
 
 
 def log(*parts) -> None:
@@ -386,7 +401,7 @@ def dlrm_phase(dev) -> tuple:
         end.record()
         torch.cuda.synchronize()
         launched = embag.launches - before
-        want_launches = 0 if cell == "retrieval_cand" else cfg.n_sparse
+        want_launches = 0 if cell == "retrieval_cand" else 1
         if launched != want_launches:
             raise AssertionError(f"{cell} request {step}: {launched} K3 "
                                  f"launches, expected {want_launches}")
@@ -443,8 +458,146 @@ def dlrm_phase(dev) -> tuple:
             f"{'candidates' if cell == 'retrieval_cand' else 'samples'}"
             f"_per_s={per / med * 1e3:.1f}")
     log(f"dlrm: max_memory_allocated {record['max_memory_allocated']}")
-    del model, batches, outs, plain
-    return record, launches
+    del outs, plain
+    rows = embag_tables_rows(model, dev, {
+        cell: batches[first[cell]]["sparse"]
+        for cell in ("serve_p99", "serve_bulk")})
+    record["profiles"] = {}
+    for cell in DLRM_REQUESTS:
+        batch = batches[first[cell]]
+        if cell == "retrieval_cand":
+            request = lambda: retrieval_step(cfg, model, batch, device=dev)
+        else:
+            request = lambda: serve_step(cfg, model, batch, device=dev)
+        record["profiles"][cell] = profile_request(cell, request)
+    del model, batches
+    return record, launches, rows
+
+
+def _host_ms(fn) -> float:
+    """Median host time to issue ``fn`` (no synchronise inside), over
+    REPS calls each after the card has drained."""
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def embag_tables_rows(model, dev, sparse: dict) -> list:
+    """The table-batched K3 on the model's 26 tables at each serving
+    cell's indices, against its plain version, the library and the
+    per-table path, with its launch variants."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import (embag, embag_tables,
+                                                   embedding_bags_ref)
+    tables = model.tables
+    d = tables[0].shape[1]
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    rows = []
+    for cell, idx in sparse.items():
+        bags, n_tables, pool = idx.shape
+        out = torch.empty((bags, n_tables, d), device=dev)
+        want = embedding_bags_ref(tables, idx)
+        kernel = lambda: embag_tables(tables, idx, out=out)
+        plain = lambda: embedding_bags_ref(tables, idx, out=want)
+        idx_long = [idx[:, f].long().contiguous() for f in range(n_tables)]
+        library = lambda: [F.embedding_bag(i, t, mode="sum")
+                           for i, t in zip(idx_long, tables)]
+        per_table = lambda: torch.stack(
+            [embag(t, idx[:, f]) for f, t in enumerate(tables)], dim=1)
+        kernel()
+        got_lib, got_per_table = library(), per_table()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"embag_tables {cell}: not bit-equal to "
+                                 "embedding_bags_ref")
+        if not torch.equal(got_per_table, want):
+            raise AssertionError(f"embag_tables {cell}: not bit-equal to "
+                                 "the per-table launches")
+        torch.testing.assert_close(torch.stack(got_lib, dim=1), want,
+                                   rtol=1e-5, atol=1e-5)
+        del got_lib, got_per_table
+        variants = []
+        for items, threads in EMBAG_VARIANTS:
+            fn = lambda: embag_tables(tables, idx, out=out,
+                                      launch=(items, threads))
+            out.fill_(float("nan"))
+            fn()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"embag_tables {cell} items={items} "
+                                     f"threads={threads}: not bit-equal")
+            variants.append(dict(items_per_warp=items, threads=threads,
+                                 ms=time_ms(fn, flush)))
+            log(f"variant embag_tables {cell} items_per_warp={items} "
+                f"threads={threads}: ms={variants[-1]['ms']:.4f}")
+        # each input read once: the distinct rows of each table, the
+        # indices; the output written once
+        distinct = [int(torch.unique(idx[:, f]).numel())
+                    for f in range(n_tables)]
+        at_most = [min(bags * pool, t.shape[0]) for t in tables]
+        small = (bags * n_tables * pool * 4) + bags * n_tables * d * 4
+        moved = sum(distinct) * d * 4 + small
+        rows.append(_row(
+            f"embag_tables[f32,sum,{cell},B={bags},P={pool},F={n_tables},"
+            f"D={d}]", "embag", float((out - want).abs().max()),
+            time_ms(kernel, flush), time_ms(plain, flush),
+            time_ms(library, flush), moved, bags * n_tables * pool * d,
+            F32_OPS_PER_S, host_issue_ms=_host_ms(kernel),
+            per_table_ms=time_ms(per_table, flush),
+            per_table_host_issue_ms=_host_ms(per_table),
+            bags=bags, pool=pool, tables=n_tables, d=d,
+            distinct_rows=sum(distinct),
+            bytes_at_most=sum(at_most) * d * 4 + small,
+            bound_ms_at_most=(sum(at_most) * d * 4 + small)
+            / HBM_BYTES_PER_S * 1e3, variants=variants))
+        log(f"  per_table_ms={rows[-1]['per_table_ms']:.4f} "
+            f"per_table_host_issue_ms="
+            f"{rows[-1]['per_table_host_issue_ms']:.4f} "
+            f"host_issue_ms={rows[-1]['host_issue_ms']:.4f}")
+        del out, want, idx_long
+    return rows
+
+
+def profile_request(cell: str, request) -> dict:
+    """One untimed request under ``torch.profiler``: the device ops with
+    the most time (kernels, copies, fills), the device's busy time, and
+    its idle share between the first op's start and the last op's end."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    if not ops:
+        log(f"profile {cell}: no device op recorded")
+        return dict(wall_ms=wall_ms, ops=0)
+    by_name = {}
+    for e in ops:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    span = (max(e.time_range.end for e in ops)
+            - min(e.time_range.start for e in ops)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
+    log(f"profile {cell}: wall_ms={wall_ms:.4f} device_busy_ms={busy:.4f} "
+        f"device_span_ms={span:.4f} idle_share={1 - busy / span:.3f} "
+        f"device_ops={len(ops)}")
+    for name, (ms, n) in top:
+        log(f"  {ms:.4f} ms {n}x {name[:100]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_span_ms=span,
+                idle_share=1 - busy / span, ops=len(ops),
+                top=[dict(name=name, ms=ms, count=n)
+                     for name, (ms, n) in top])
 
 
 def attention_path(dev) -> tuple:
@@ -772,7 +925,8 @@ def main() -> int:
     free_device_memory()
 
     # 5. DLRM serving
-    dlrm, launches["embag"] = dlrm_phase(dev)
+    dlrm, launches["embag"], k3_rows = dlrm_phase(dev)
+    rows += k3_rows
     free_device_memory()
 
     # 6. the attention entry point

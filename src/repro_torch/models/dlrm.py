@@ -3,12 +3,14 @@
 
 13 dense features -> bottom MLP 512-256-128; 26 categorical features ->
 embedding tables (dim 128) pooled by the embedding-bag kernel (K3, one
-launch per feature); dot-product interaction over the 27 vectors; top
-MLP 1024-1024-512-256-1; BCE loss.  ``retrieval_score`` scores one user
+launch for all 26 features, written straight into the interaction's
+input); dot-product interaction over the 27 vectors; top MLP
+1024-1024-512-256-1; BCE loss.  ``retrieval_score`` scores one user
 against a million candidate embeddings as one batched dot.
 
-The parameters are one :class:`DLRM` module: ``tables`` (a list of
-``[rows, D]`` float32 tables), ``bot`` and ``top``
+The parameters are one :class:`DLRM` module: ``tables`` (a tuple of
+``[rows, D]`` float32 tables, registered as ``table_0`` ...), ``bot`` and
+``top``
 (:class:`~repro_torch.models.gnn.common.MLPStack`, ``layers[i].{w, b}``
 with ``w [d_in, d_out]`` as in the reference).
 :func:`dlrm_params_from_jax` carries the reference's parameters across.
@@ -18,6 +20,7 @@ raises without one unless ``device="cpu"`` is passed.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ops import embedding_bags
 from repro_torch.models.gnn.common import (MLPStack, init_mlp_stack,
                                            mlp_stack)
 from repro_torch.models.layers import Dense
@@ -88,14 +91,22 @@ class DLRM(nn.Module):
     def __init__(self, tables: Sequence[torch.Tensor], bot: MLPStack,
                  top: MLPStack):
         super().__init__()
-        self.tables = nn.ParameterList(
-            [nn.Parameter(t, requires_grad=False) for t in tables])
+        self._table_names = tuple(f"table_{i}" for i in range(len(tables)))
+        for name, t in zip(self._table_names, tables):
+            self.register_parameter(name,
+                                    nn.Parameter(t, requires_grad=False))
         self.bot = bot
         self.top = top
 
     @property
+    def tables(self) -> tuple:
+        """The embedding tables, in feature order (a tuple, cheap to
+        build per request, unlike iterating an ``nn.ParameterList``)."""
+        return tuple(self._parameters[name] for name in self._table_names)
+
+    @property
     def device(self) -> torch.device:
-        return self.tables[0].device
+        return self._parameters[self._table_names[0]].device
 
 
 def init_dlrm(cfg: DLRMConfig, generator: torch.Generator,
@@ -142,30 +153,50 @@ def _on(params: DLRM, batch: Mapping, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_index(n: int, device: torch.device) -> torch.Tensor:
+    """Flat indices ``i * n + j`` of the pairs i < j of n vectors, in
+    ``jnp.triu_indices``'s row-major order; built once per (n, device),
+    as a normal tensor even when first asked for under inference mode."""
+    with torch.inference_mode(False):
+        iu, ju = torch.triu_indices(n, n, offset=1)
+        return (iu * n + ju).to(device)
+
+
+def _interact_z(z: torch.Tensor) -> torch.Tensor:
+    """z [B, F+1, D], the bottom output then the F pooled features ->
+    the bottom output, then the upper triangle of the Gram matrix of the
+    F + 1 vectors (row-major, as ``jnp.triu_indices``)."""
+    b, n, _ = z.shape
+    gram = torch.bmm(z, z.transpose(1, 2)).float().view(b, n * n)
+    pairs = gram.index_select(1, _pair_index(n, z.device))
+    return torch.cat([z[:, 0], pairs.to(z.dtype)], dim=-1)
+
+
 def _interact(bottom: torch.Tensor, embs: torch.Tensor) -> torch.Tensor:
     """bottom [B, D]; embs [B, F, D] -> the upper triangle of the Gram
     matrix of the F + 1 vectors (row-major, as ``jnp.triu_indices``),
     after the bottom output passed through."""
-    z = torch.cat([bottom[:, None, :], embs], dim=1)            # [B, F+1, D]
-    gram = torch.bmm(z, z.transpose(1, 2)).float()
-    f = z.shape[1]
-    iu, ju = torch.triu_indices(f, f, offset=1, device=z.device)
-    return torch.cat([bottom, gram[:, iu, ju].to(bottom.dtype)], dim=-1)
+    return _interact_z(torch.cat([bottom[:, None, :], embs], dim=1))
 
 
 def dlrm_forward(cfg: DLRMConfig, params: DLRM, batch: Mapping,
                  impl: str = "kernel", device=None) -> torch.Tensor:
     """Logits [B].  batch: dense [B, 13] f32; sparse [B, 26, multi_hot]
     int32.  ``impl`` picks the embedding bag: the kernel, or ``"plain"``
-    for comparison."""
+    for comparison.  Either way the pooled features are written once,
+    into the interaction's input ``z [B, 27, D]`` after the bottom
+    output, so both feed the interaction the same tensor."""
     batch = _on(params, batch, device)
     bottom = mlp_stack(params.bot, batch["dense"], final_act=True)
     sparse = batch["sparse"]
-    embs = torch.stack([
-        embedding_bag(params.tables[i], sparse[:, i, :], mode="sum",
-                      impl=impl)
-        for i in range(cfg.n_sparse)], dim=1)                   # [B, 26, D]
-    x = _interact(bottom, embs)
+    z = torch.empty((bottom.shape[0], cfg.n_sparse + 1, bottom.shape[1]),
+                    dtype=bottom.dtype, device=bottom.device)
+    z[:, 0] = bottom
+    embedding_bags(params.tables, sparse, mode="sum", impl=impl,
+                   out=z[:, 1:])                                # [B, 26, D]
+    x = _interact_z(z)
+    del z  # 3.6 GB at serve_bulk's batch: not held through the top MLP
     return mlp_stack(params.top, x)[:, 0]
 
 

@@ -11,7 +11,8 @@ K1/K2 min, max and int32 sum bit-equal, the float32 sum to
 rtol=atol=1e-5, since the kernel's shared-memory atomics add in an order
 that changes from run to run (hubs, split blocks, empty blocks, float
 specials, wrapping sums and dirty-scratch checks included); K3 bit-equal at P = 1 and to 1e-5 for
-P > 1 and the mean (another order of the sum); K4 to atol 2e-3 in f32
+P > 1 and the mean (another order of the sum), and its table-batched call
+bit-equal to single-table calls at any P (the same code per bag); K4 to atol 2e-3 in f32
 and, in bf16, to one bf16 step of the output (rtol 2**-7) plus atol 1e-2
 (online softmax against one pass, p rounded to bf16 at another running
 max).
@@ -23,7 +24,10 @@ import torch
 from repro_torch.algorithms import bfs, pagerank, sssp
 from repro_torch.core import SystemConfig, run
 from repro_torch.graph import powerlaw_graph
-from repro_torch.kernels.embedding_bag import embag, embedding_bag_ref
+from repro_torch.kernels.embedding_bag import (MAX_TABLES, embag,
+                                               embag_tables, embedding_bag_ref,
+                                               embedding_bags_ref)
+from repro_torch.kernels.embedding_bag.kernel import _library as embag_library
 from repro_torch.kernels.flash_attention import (attention, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.segment_reduce import (BlockedSegmentReducer,
@@ -293,6 +297,117 @@ def test_embedding_bag_matches_plain_on_the_card(cuda_device, r, d, b, p,
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
                                    equal_nan=True)
+
+
+#: (B, P, D, table rows) of the table-batched K3 cases
+BAGS_CASES = [(512, 1, 128, (1000, 200, 50, 300, 77, 10)),
+              (300, 8, 128, (5000, 3, 40_000)),
+              (77, 3, 16, (1000, 200, 50, 300, 77, 10)),
+              (64, 40, 32, (100, 7)),
+              (33, 2, 6, (50, 9, 12))]
+
+
+def _bags_inputs(dev, rows, b, p, d, seed):
+    rng = np.random.default_rng(seed)
+    tables = [torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32))
+              .to(dev) for r in rows]
+    idx = np.stack([rng.integers(0, r, (b, p)) for r in rows], axis=1)
+    return tables, torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,d,rows", BAGS_CASES)
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("items_per_warp,threads", [(1, 256), (2, 128),
+                                                    (4, 256), (4, 128)])
+def test_embag_tables_is_single_table_calls_on_the_card(
+        cuda_device, b, p, d, rows, mode, items_per_warp, threads):
+    tables, idx = _bags_inputs(cuda_device, rows, b, p, d, b + p + d)
+    launches = embag.launches
+    got = embag_tables(tables, idx, mode=mode,
+                       launch=(items_per_warp, threads))
+    assert embag.launches == launches + 1
+    per_table = torch.stack([embag(t, idx[:, f], mode=mode)
+                             for f, t in enumerate(tables)], dim=1)
+    want = embedding_bags_ref(tables, idx, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, per_table)
+    if p == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_embag_tables_hold_each_table_to_its_own_rows_on_the_card(
+        cuda_device):
+    tables, _ = _bags_inputs(cuda_device, (1000, 10, 77), 1, 1, 128, 3)
+    idx = torch.tensor([[[500, 1], [5, 2], [3, 4]],
+                        [[20, 0], [20, 0], [20, 0]],
+                        [[-1, 0], [-1, 0], [-77, 0]],
+                        [[999, 0], [-10, 0], [-78, 0]]],
+                       dtype=torch.int32, device=cuda_device)
+    got = embag_tables(tables, idx)
+    want = embedding_bags_ref(tables, idx)
+    torch.cuda.synchronize()
+    nan = torch.zeros((4, 3), dtype=torch.bool, device=cuda_device)
+    nan[1, 1] = nan[3, 2] = True
+    assert torch.equal(torch.isnan(got).all(-1), nan)
+    assert torch.equal(torch.isnan(got).any(-1), nan)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 16, 6])
+def test_embag_tables_write_into_a_slice_of_z_on_the_card(cuda_device, d):
+    rows = (1000, 200, 50, 300, 77, 10)
+    tables, idx = _bags_inputs(cuda_device, rows, 129, 1, d, d)
+    z = torch.full((129, len(rows) + 1, d), 7.0, device=cuda_device)
+    got = embag_tables(tables, idx, out=z[:, 1:])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == z[:, 1:].data_ptr()
+    assert (z[:, 0] == 7.0).all()
+    assert torch.equal(z[:, 1:], embedding_bags_ref(tables, idx))
+
+
+@pytest.mark.cuda
+def test_embag_tables_on_the_criteo_vocabularies_on_the_card(cuda_device):
+    from repro_torch.models.dlrm import CRITEO_1TB_VOCABS
+    rows = tuple(min(v, 100_000) for v in CRITEO_1TB_VOCABS)
+    tables, idx = _bags_inputs(cuda_device, rows, 2048, 1, 128, 26)
+    launches = embag.launches
+    got = embag_tables(tables, idx)
+    assert embag.launches == launches + 1
+    want = embedding_bags_ref(tables, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_embag_tables_takes_the_sources_table_limit(cuda_device):
+    assert embag_library().embag_max_tables() == MAX_TABLES
+    tables, idx = _bags_inputs(cuda_device, (3,) * MAX_TABLES, 5, 1, 4, 1)
+    torch.testing.assert_close(embag_tables(tables, idx),
+                               embedding_bags_ref(tables, idx), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_dlrm_forward_launches_k3_once_on_the_card(cuda_device):
+    from repro_torch.configs.dlrm_mlperf import REDUCED, serving_batch
+    from repro_torch.models.dlrm import dlrm_forward, init_dlrm
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = init_dlrm(REDUCED, gen, cuda_device)
+    batch = serving_batch(REDUCED, "serve_p99", 3, device=cuda_device)
+    launches = embag.launches
+    got = dlrm_forward(REDUCED, model, batch, device=cuda_device)
+    assert embag.launches == launches + 1
+    want = dlrm_forward(REDUCED, model, batch, impl="plain",
+                        device=cuda_device)
+    assert embag.launches == launches + 1
+    assert got.shape == (512,) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -21,8 +21,9 @@ from repro_torch.configs.dlrm_mlperf import (CFG, REDUCED,
                                              serve_step, serving_batch)
 from repro_torch.data.synthetic import dlrm_batch
 from repro_torch.kernels.embedding_bag import embag
+from repro_torch.models import dlrm as t_dlrm
 from repro_torch.models.dlrm import (CRITEO_1TB_VOCABS, DLRMConfig, _interact,
-                                     dlrm_forward, dlrm_loss,
+                                     _pair_index, dlrm_forward, dlrm_loss,
                                      dlrm_params_from_jax, init_dlrm,
                                      retrieval_score)
 
@@ -186,3 +187,42 @@ def test_mlp_stack_matches_the_reference(final_act):
         np.asarray(j_common.mlp_stack(j_stack, jnp.asarray(x),
                                       final_act=final_act)),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_forward_pools_every_table_in_one_call(params, monkeypatch, impl):
+    j_params, port = params
+    calls = []
+    real = t_dlrm.embedding_bags
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs["out"].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(t_dlrm, "embedding_bags", counted)
+    batch = dlrm_batch(4, 16, REDUCED.vocab_sizes)
+    want = np.asarray(j_dlrm.dlrm_forward(REDUCED, j_params, _jax(batch),
+                                          impl="pallas"))
+    got = dlrm_forward(REDUCED, port, batch, impl=impl, device="cpu")
+    assert calls == [(16, REDUCED.n_sparse, REDUCED.embed_dim)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_pair_index_is_built_once_in_row_major_order():
+    cpu = torch.device("cpu")
+    index = _pair_index(27, cpu)
+    assert _pair_index(27, cpu) is index
+    iu, ju = jnp.triu_indices(27, k=1)
+    np.testing.assert_array_equal(index.numpy(),
+                                  np.asarray(iu) * 27 + np.asarray(ju))
+    with torch.inference_mode():
+        assert not _pair_index(5, cpu).is_inference()
+
+
+def test_tables_are_registered_parameters_in_feature_order(params):
+    _, port = params
+    names = [n for n, _ in port.named_parameters() if n.startswith("table")]
+    assert names == [f"table_{i}" for i in range(REDUCED.n_sparse)]
+    assert all(t is getattr(port, n) for t, n in zip(port.tables, names))
+    assert [t.shape[0] for t in port.tables] == \
+        list(REDUCED.padded_vocab_sizes)
