@@ -15,9 +15,10 @@ script exits non-zero:
 1. device: require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them.
-2. build: compile the three kernel libraries from this checkout's
-   sources (one ``nvcc`` for sm_90a per source, all started together)
-   and print each build's seconds and ``ptxas`` register lines.
+2. build: compile the three kernel libraries and the fused engine's
+   IF-node library from this checkout's sources (one ``nvcc`` for
+   sm_90a per source, all started together) and print each build's
+   seconds and ``ptxas`` register lines.
 3. kernels: call each kernel at its path's shapes and hold it against
    its plain PyTorch version on the same inputs; time the kernel, the
    plain version and one PyTorch library call computing the same
@@ -44,15 +45,35 @@ script exits non-zero:
      held to the same tolerance.
    Every row carries ``bound_share`` (the bound over the kernel's time)
    and ``library_over_ms`` (the library call's time over the kernel's).
-4. graph path: with the K1/K2 counts set to 0, run BFS, SSSP and
-   PageRank through ``repro_torch.core.run`` with ``use_kernels=True``
-   under SD1 (owned kernel), TG0 (pull kernel) and DD1 (both kernels
-   plus the sparse gather), each cell once untimed and then 3 timed
-   runs (the median is kept: single host-clock runs vary); require each
-   run to launch its kernel; then check the states against the numpy
-   oracles (BFS exact, SSSP rtol=1e-5, PR atol=1e-6).  The same cells
-   run the same way with ``use_kernels=False`` (plain scatter
-   reductions) for comparison.
+4. graph path: with the K1/K2 counts set to 0, run every app of the
+   registry through ``repro_torch.core.run`` with ``use_kernels=True``:
+   BFS, SSSP, PR, CC, BC, MIS and CLR under SD1 (owned kernel) and DD1
+   (both kernels, the sparse gather and the device-side direction
+   choice), BFS, SSSP and PR under TG0 (pull kernel); MIS and CLR draw
+   their priorities from a seeded ``torch.Generator``.  Each cell runs
+   under the host engine and under the fused engine (a replayed CUDA
+   graph with conditional IF nodes; its first run captures it), each
+   once untimed and then 3 timed runs (the median is kept), with
+   ``max_memory_allocated`` per engine; require each engine's runs to
+   launch the cell's kernel, fused equal to host (bit for bit; PR to
+   atol 1e-6 and BC to rtol 1e-5, atol 1e-6, iterations to +-1: K1's
+   float atomics add in a run-dependent order), and one more fused run
+   under ``torch.profiler`` to have executed K1/K2 inside the replays
+   (its device ops name the kernel; the wrappers count host calls,
+   that is captures, not replays).  Then check both engines' states
+   against the numpy oracles (BFS and CC exact, SSSP rtol=1e-5, PR
+   atol=1e-6, BC rtol=1e-4 plus 1e-5 of the largest score, MIS
+   independent and maximal, CLR proper).  BFS, SSSP and PR also run
+   with ``use_kernels=False`` (plain scatter reductions) for
+   comparison.
+4b. dispatch: ``repro_torch.benchmarks.dispatch`` at its pinned
+   workload (R-MAT scale 10, BFS, 18 configs x both engines, best of
+   10; writes ``results/torch/BENCH_dispatch.json``), then the sweep of
+   guarded steps per graph, K in (1, 4, 8, 16, 32): the fused engine's
+   µs per iteration on five configs of that workload and its seconds
+   for PR TG0 and BFS DD1 on the AMZ stand-in.  Profiled runs (device
+   busy time against the span) of SG0, SG1 and DD1 under both engines,
+   and of SG0 fused at each K.
 5. DLRM serving: MLPerf DLRM (Criteo 1TB) at full width with every
    table capped at 16,000,000 rows (43.0 GB of float32 tables; the
    full 96.1 GB do not fit one 80 GB card), random weights from a
@@ -136,6 +157,19 @@ CASES = [("seg_sum", torch.float32, "sum"),
 REPS = 15
 #: graph cells: timed runs after one untimed run, the median is kept
 TIMED_RUNS = 3
+#: graph cells of the main path: (config, apps), all with the kernels
+GRAPH_CELLS = [("SD1", ("BFS", "SSSP", "PR", "CC", "BC", "MIS", "CLR")),
+               ("TG0", ("BFS", "SSSP", "PR")),
+               ("DD1", ("BFS", "SSSP", "PR", "CC", "BC", "MIS", "CLR"))]
+#: fused against host for the float apps (K1's float atomics)
+FLOAT_APPS = {"PR": dict(rtol=0.0, atol=1e-6),
+              "BC": dict(rtol=1e-5, atol=1e-6)}
+#: MIS and CLR draw their priorities from a generator of this seed
+PRIORITY_SEED = {"MIS": 16, "CLR": 17}
+#: the dispatch benchmark's best-of repeats, and the guarded steps per
+#: graph (K) of the sweep
+DISPATCH_REPEATS = 10
+SWEEP_STEPS = (1, 4, 8, 16, 32)
 #: the sweep's grid: edges per chunk, threads per CTA
 SWEEP_CHUNK_E = (2048, 4096, 8192, 16384)
 SWEEP_THREADS = (256, 512)
@@ -188,8 +222,10 @@ def time_ms(fn, flush: torch.Tensor) -> float:
 
 
 def build_phase() -> dict:
-    """Build the three kernel libraries, one ``nvcc`` per source, all
-    started together; returns each source's build seconds."""
+    """Build the three kernel libraries and the fused engine's IF-node
+    library, one ``nvcc`` per source, all started together; returns each
+    source's build seconds."""
+    from repro_torch.core.capture import SOURCE as GRAPH_IF
     from repro_torch.kernels._build import build
     from repro_torch.kernels.embedding_bag import SOURCE as EMBAG
     from repro_torch.kernels.flash_attention import SOURCE as FLASH
@@ -200,7 +236,7 @@ def build_phase() -> dict:
         lib, report = build(source)
         return lib, report, time.perf_counter() - t0
 
-    sources = (SEGMENT, EMBAG, FLASH)
+    sources = (SEGMENT, EMBAG, FLASH, GRAPH_IF)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
     seconds = {}
@@ -563,23 +599,29 @@ def embag_tables_rows(model, dev, sparse: dict) -> list:
     return rows
 
 
-def profile_request(cell: str, request) -> dict:
+def profile_request(cell: str, request, attempts: int = 3) -> dict:
     """One untimed request under ``torch.profiler``: the device ops with
     the most time (kernels, copies, fills), the device's busy time, and
-    its idle share between the first op's start and the last op's end."""
+    its idle share between the first op's start and the last op's end.
+    A profile that recorded no device op at all (the tracer missed the
+    request) is taken again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        request()
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            request()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if ops:
+            break
+        log(f"profile {cell}: no device op recorded (attempt "
+            f"{attempt + 1} of {attempts})")
     if not ops:
-        log(f"profile {cell}: no device op recorded")
         return dict(wall_ms=wall_ms, ops=0)
     by_name = {}
     for e in ops:
@@ -589,6 +631,7 @@ def profile_request(cell: str, request) -> dict:
     span = (max(e.time_range.end for e in ops)
             - min(e.time_range.start for e in ops)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
+    counts = {name: n for name, (_, n) in by_name.items()}
     log(f"profile {cell}: wall_ms={wall_ms:.4f} device_busy_ms={busy:.4f} "
         f"device_span_ms={span:.4f} idle_share={1 - busy / span:.3f} "
         f"device_ops={len(ops)}")
@@ -597,7 +640,7 @@ def profile_request(cell: str, request) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_span_ms=span,
                 idle_share=1 - busy / span, ops=len(ops),
                 top=[dict(name=name, ms=ms, count=n)
-                     for name, (ms, n) in top])
+                     for name, (ms, n) in top], counts=counts)
 
 
 def attention_path(dev) -> tuple:
@@ -780,90 +823,265 @@ def sweep_phase(graph, dev, flush) -> list:
     return records
 
 
-def _timed_runs(factory, graph, cfg, dev, kernel=None) -> tuple:
-    """One untimed run of a cell, then TIMED_RUNS timed ones, through
-    ``kernel`` (each run must launch it) or, without one, through the
-    plain reductions; returns the last result and the timed seconds."""
+def _engine_runs(program, graph, cfg, dev, engine, kernels,
+                 seed=None) -> tuple:
+    """One untimed run of a cell under ``engine``, then TIMED_RUNS timed
+    ones (the fused engine captures in the first); a program with
+    random priorities draws them from a fresh generator seeded ``seed``
+    each run.  Returns the last result, the timed seconds, and
+    ``max_memory_allocated`` and ``memory_reserved`` over the runs."""
     from repro_torch.core import SystemConfig, run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     seconds = []
     for i in range(TIMED_RUNS + 1):
-        before = kernel.launches if kernel else 0
-        res = run(factory(), graph, SystemConfig.from_name(cfg),
-                  use_kernels=kernel is not None, device=dev)
-        if kernel and kernel.launches == before:
-            raise AssertionError(f"{cfg} run {i} launched no "
-                                 f"{kernel.__name__} kernel")
+        key = None if seed is None else torch.Generator().manual_seed(seed)
+        res = run(program, graph, SystemConfig.from_name(cfg), key=key,
+                  use_kernels=kernels, engine=engine, device=dev)
         if i:
             seconds.append(res.seconds)
-    return res, seconds
+    return (res, seconds, torch.cuda.max_memory_allocated(dev),
+            torch.cuda.memory_reserved(dev))
+
+
+def _same_run(app, cfg, fused, host) -> None:
+    """Fused against host: bit for bit for the exact apps; PR and BC to
+    their tolerances (K1's float atomics add in a run-dependent order),
+    iterations to +-1."""
+    what = f"{app} {cfg}"
+    if app in FLOAT_APPS:
+        if abs(fused.iterations - host.iterations) > 1:
+            raise AssertionError(f"{what}: fused {fused.iterations} "
+                                 f"iterations, host {host.iterations}")
+        key = "rank" if app == "PR" else "delta"
+        torch.testing.assert_close(fused.state[key], host.state[key],
+                                   **FLOAT_APPS[app], msg=what)
+        return
+    if (fused.iterations != host.iterations
+            or fused.direction_trace != host.direction_trace
+            or fused.occupancy_trace != host.occupancy_trace):
+        raise AssertionError(f"{what}: fused and host runs differ in "
+                             "iterations or traces")
+    for key, want in host.state.items():
+        if not torch.equal(fused.state[key], want):
+            raise AssertionError(f"{what}: fused {key!r} differs from host")
+
+
+def _oracle_check(app, graph, res, program, oracles) -> None:
+    """The numpy oracles: BFS and CC exact, SSSP rtol 1e-5, PR atol
+    1e-6, BC rtol 1e-4 plus 1e-5 of the largest score, MIS independent
+    and maximal, CLR proper."""
+    from repro_torch.algorithms import reference as ref
+    got = res.extract(program).cpu().numpy()
+    if got.shape != (graph.n_nodes,):
+        raise AssertionError(f"{app}: result of shape {got.shape}")
+    if app == "MIS":
+        if not ref.is_maximal_independent_set(graph, got):
+            raise AssertionError("MIS: not a maximal independent set")
+        return
+    if app == "CLR":
+        if not ref.is_proper_coloring(graph, got):
+            raise AssertionError("CLR: not a proper coloring")
+        return
+    if not np.isfinite(got).any():
+        raise AssertionError(f"{app}: no finite value")
+    want = oracles[app]
+    if app in ("BFS", "CC"):
+        np.testing.assert_array_equal(got, want)
+    elif app == "SSSP":
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    elif app == "PR":
+        np.testing.assert_allclose(got, want, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(want).max()))
+
+
+def _device_launches(prof_record: dict) -> dict:
+    """K1 and K2 launches among a profiled run's device ops."""
+    counts = {"seg_sum": 0, "seg_minmax": 0}
+    for name, n in prof_record.get("counts", {}).items():
+        if "seg_reduce_kernel" in name:
+            counts["seg_minmax" if "MinMax" in name else "seg_sum"] += n
+    return counts
 
 
 def main_path(graph, dev) -> tuple:
-    from repro_torch.algorithms import bfs, pagerank, sssp
-    from repro_torch.algorithms.reference import (bfs_np, pagerank_np,
-                                                  sssp_np)
+    """Every app of the registry through ``run`` with the kernels, under
+    both engines; the K1/K2 counts are set to 0 first and read last."""
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.algorithms import reference as ref
+    from repro_torch.core import SystemConfig, run
     from repro_torch.kernels.segment_reduce import seg_minmax, seg_sum
-    apps = {"BFS": (bfs, seg_minmax), "SSSP": (sssp, seg_minmax),
-            "PR": (pagerank, seg_sum)}
+    kernels = {"seg_sum": seg_sum, "seg_minmax": seg_minmax}
     seg_sum.launches = 0
     seg_minmax.launches = 0
-    results = []
-    for cfg in ("SD1", "TG0", "DD1"):
-        for app, (factory, kernel) in apps.items():
+    cells = []
+    for cfg, apps in GRAPH_CELLS:
+        for app in apps:
+            kname = "seg_sum" if app in FLOAT_APPS else "seg_minmax"
+            kernel = kernels[kname]
+            program, seed = REGISTRY[app](), PRIORITY_SEED.get(app)
             before = kernel.launches
-            res, seconds = _timed_runs(factory, graph, cfg, dev, kernel)
-            launched = kernel.launches - before
-            if not res.converged:
-                raise AssertionError(f"{app} under {cfg} did not converge")
-            results.append((app, cfg, res, seconds, kernel.__name__,
-                            launched))
+            host, host_s, host_peak, host_res = _engine_runs(
+                program, graph, cfg, dev, "host", True, seed)
+            mid = kernel.launches
+            fused, fused_s, fused_peak, fused_res = _engine_runs(
+                program, graph, cfg, dev, "fused", True, seed)
+            if mid == before or kernel.launches == mid:
+                raise AssertionError(f"{app} {cfg}: an engine launched no "
+                                     f"{kname}")
+            _same_run(app, cfg, fused, host)
+            key = None if seed is None else \
+                torch.Generator().manual_seed(seed)
+            prof = profile_request(
+                f"{app} {cfg} fused", lambda: run(
+                    program, graph, SystemConfig.from_name(cfg), key=key,
+                    use_kernels=True, device=dev))
+            device = _device_launches(prof)
+            if device[kname] <= 0:
+                raise AssertionError(f"{app} {cfg}: the profiled fused run "
+                                     f"executed no {kname} kernel")
+            cells.append(dict(
+                app=app, config=cfg, kernel=kname, program=program,
+                fused=fused, host=host, fused_seconds=fused_s,
+                host_seconds=host_s, wrapper_launches=kernel.launches - before,
+                device_launches=device[kname], profile=prof, memory=dict(
+                    host_max_allocated=host_peak, host_reserved=host_res,
+                    fused_max_allocated=fused_peak,
+                    fused_reserved=fused_res)))
     launches = {"seg_sum": seg_sum.launches,
                 "seg_minmax": seg_minmax.launches}
     log(f"main path launches: {json.dumps(launches)}")
-    # the same cells with the plain scatter reductions, for comparison
+    device_launches = {k: sum(c["device_launches"] for c in cells
+                              if c["kernel"] == k) for k in kernels}
+    log(f"main path device launches (one profiled fused run per cell): "
+        f"{json.dumps(device_launches)}")
+
+    # BFS, SSSP and PR with the plain scatter reductions, for comparison
     plain_seconds = {}
-    for app, cfg, res, _, _, _ in results:
-        plain, seconds = _timed_runs(apps[app][0], graph, cfg, dev)
-        if plain.iterations != res.iterations and app != "PR":
-            raise AssertionError(f"{app} {cfg}: iterations differ between "
-                                 "kernel and plain reductions")
-        plain_seconds[app, cfg] = seconds
+    for c in cells:
+        if c["app"] in ("BFS", "SSSP", "PR"):
+            plain, seconds, _, _ = _engine_runs(
+                REGISTRY[c["app"]](), graph, c["config"], dev, "fused", False)
+            if plain.iterations != c["fused"].iterations \
+                    and c["app"] != "PR":
+                raise AssertionError(f"{c['app']} {c['config']}: iterations "
+                                     "differ between kernel and plain "
+                                     "reductions")
+            plain_seconds[c["app"], c["config"]] = seconds
 
     t0 = time.perf_counter()
-    oracle = {"BFS": bfs_np(graph), "SSSP": sssp_np(graph),
-              "PR": pagerank_np(graph)}
+    oracles = {"BFS": ref.bfs_np(graph), "SSSP": ref.sssp_np(graph),
+               "PR": ref.pagerank_np(graph), "CC": ref.cc_np(graph),
+               "BC": ref.bc_np(graph)}
     log(f"oracles: {time.perf_counter() - t0:.1f} s")
     record = []
-    for app, cfg, res, seconds, kname, launched in results:
-        got = res.extract(apps[app][0]()).cpu().numpy()
-        if not np.isfinite(got).any() or got.shape != oracle[app].shape:
-            raise AssertionError(f"{app} {cfg}: bad result shape/values")
-        if app == "BFS":
-            np.testing.assert_array_equal(got, oracle[app])
-        elif app == "SSSP":
-            np.testing.assert_allclose(got, oracle[app], rtol=1e-5)
-        else:
-            np.testing.assert_allclose(got, oracle[app], atol=1e-6)
-        med = statistics.median(seconds)
-        plain_med = statistics.median(plain_seconds[app, cfg])
-        entry = dict(app=app, config=cfg, iterations=res.iterations,
-                     seconds=med, seconds_runs=seconds,
-                     host_syncs=res.host_syncs,
-                     host_syncs_per_iteration=res.host_syncs / res.iterations,
-                     direction_trace=res.direction_trace,
-                     sparse_iterations=res.sparse_iterations,
-                     kernel=kname, kernel_launches=launched,
-                     seconds_without_kernels=plain_med,
-                     seconds_without_kernels_runs=plain_seconds[app, cfg])
+    for c in cells:
+        app, cfg, fused, host = c["app"], c["config"], c["fused"], c["host"]
+        for res in (fused, host):
+            if not res.converged:
+                raise AssertionError(f"{app} {cfg}: {res.engine} engine did "
+                                     "not converge")
+            _oracle_check(app, graph, res, c["program"], oracles)
+        med = statistics.median(c["fused_seconds"])
+        host_med = statistics.median(c["host_seconds"])
+        plain = plain_seconds.get((app, cfg))
+        entry = dict(
+            app=app, config=cfg, iterations=fused.iterations,
+            host_iterations=host.iterations, seconds=med,
+            seconds_runs=c["fused_seconds"], host_seconds=host_med,
+            host_seconds_runs=c["host_seconds"],
+            fused_speedup=host_med / med,
+            dispatches=fused.dispatches, host_syncs=fused.host_syncs,
+            host_dispatches=host.dispatches,
+            host_host_syncs=host.host_syncs,
+            direction_trace=fused.direction_trace,
+            sparse_iterations=fused.sparse_iterations,
+            kernel=c["kernel"], kernel_launches=c["wrapper_launches"],
+            device_launches=c["device_launches"], memory=c["memory"],
+            profile=c["profile"],
+            seconds_without_kernels=(None if plain is None
+                                     else statistics.median(plain)),
+            seconds_without_kernels_runs=plain)
         record.append(entry)
-        log(f"run {app} {cfg}: ok iterations={res.iterations} "
-            f"seconds={med:.4f} seconds_without_kernels={plain_med:.4f} "
-            f"(median of {TIMED_RUNS} after 1 untimed) "
-            f"host_syncs={res.host_syncs} "
-            f"{kname}_launches={launched} "
-            f"sparse_iterations={res.sparse_iterations} "
-            f"direction_trace={res.direction_trace}")
-    return record, launches
+        log(f"run {app} {cfg}: ok iterations={fused.iterations} "
+            f"fused_s={med:.4f} host_s={host_med:.4f} "
+            f"speedup={entry['fused_speedup']:.2f} "
+            f"fused_us_per_iteration={med * 1e6 / fused.iterations:.1f} "
+            f"host_us_per_iteration={host_med * 1e6 / host.iterations:.1f} "
+            f"(medians of {TIMED_RUNS} after 1 untimed) "
+            f"dispatches={fused.dispatches} host_syncs={fused.host_syncs} "
+            f"host_engine_syncs={host.host_syncs} "
+            f"{c['kernel']}_launches={c['wrapper_launches']} "
+            f"device_launches={c['device_launches']} "
+            f"fused_max_allocated={c['memory']['fused_max_allocated']} "
+            f"host_max_allocated={c['memory']['host_max_allocated']} "
+            f"seconds_without_kernels={entry['seconds_without_kernels']} "
+            f"sparse_iterations={fused.sparse_iterations} "
+            f"direction_trace={fused.direction_trace}")
+    return record, launches, device_launches
+
+
+def dispatch_phase(graph, dev) -> dict:
+    """The dispatch benchmark at its pinned workload, then the sweep of
+    guarded steps per graph (K) on it and on the AMZ stand-in."""
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.benchmarks.dispatch import run_dispatch
+    from repro_torch.core import SystemConfig, capture, run
+    from repro_torch.graph import rmat_graph
+    record = dict(benchmark=run_dispatch(repeats=DISPATCH_REPEATS,
+                                         device=dev))
+    for cfg, cell in record["benchmark"]["configs"].items():
+        log(f"dispatch {cfg}: host_us_per_iteration="
+            f"{cell['host']['us_per_iteration']:.1f} fused_us_per_iteration="
+            f"{cell['fused']['us_per_iteration']:.1f} "
+            f"speedup={cell['fused_speedup']:.2f} iterations="
+            f"{cell['fused']['iterations']} dispatches="
+            f"{cell['fused']['dispatches']}/{cell['host']['dispatches']} "
+            f"host_syncs={cell['fused']['host_syncs']}/"
+            f"{cell['host']['host_syncs']}")
+    rmat = rmat_graph(scale=10, edge_factor=8, seed=7)
+
+    def profiled(label, cfg, engine):
+        """One run of a captured (or, for the host, warmed) cell under
+        the profiler: device busy time against the span."""
+        program = REGISTRY["BFS"]()
+        config = SystemConfig.from_name(cfg)
+        run(program, rmat, config, engine=engine, device=dev)
+        return profile_request(label, lambda: run(
+            program, rmat, config, engine=engine, device=dev))
+
+    record["profiles"] = {f"{cfg} {engine}": profiled(
+        f"dispatch {cfg} {engine}", cfg, engine)
+        for cfg in ("SG0", "SG1", "DD1") for engine in ("host", "fused")}
+    chosen, sweep = capture.STEPS_PER_LAUNCH, []
+    try:
+        for k in SWEEP_STEPS:
+            capture.STEPS_PER_LAUNCH = k
+            row = dict(steps=k)
+            us = []
+            for cfg in ("SG0", "SD1", "TG0", "DG0", "DD1"):
+                res, seconds, _, _ = _engine_runs(REGISTRY["BFS"](), rmat,
+                                                  cfg, dev, "fused", False)
+                us.append(min(seconds) * 1e6 / res.iterations)
+            row["dispatch_geomean_us_per_iteration"] = float(
+                np.exp(np.log(us).mean()))
+            prof = profiled(f"dispatch SG0 fused K={k}", "SG0", "fused")
+            row["dispatch_SG0_device_busy_ms"] = prof.get("device_busy_ms")
+            row["dispatch_SG0_device_ops"] = prof["ops"]
+            for app, cfg in (("PR", "TG0"), ("BFS", "DD1")):
+                res, seconds, peak, _ = _engine_runs(
+                    REGISTRY[app](), graph, cfg, dev, "fused", True)
+                row[f"amz_{app}_{cfg}_seconds"] = statistics.median(seconds)
+                row[f"amz_{app}_{cfg}_dispatches"] = res.dispatches
+                row[f"amz_{app}_{cfg}_max_allocated"] = peak
+            sweep.append(row)
+            log(f"steps sweep K={k}: {json.dumps(row)}")
+    finally:
+        capture.STEPS_PER_LAUNCH = chosen
+    record["steps_sweep"] = sweep
+    return record
 
 
 def main() -> int:
@@ -919,9 +1137,12 @@ def main() -> int:
     del flush
     free_device_memory()
 
-    # 4. the graph path
-    runs, launches = main_path(graph, dev)
+    # 4. the graph path, then the dispatch benchmark and the K sweep
+    runs, launches, device_launches = main_path(graph, dev)
+    dispatch = dispatch_phase(graph, dev)
     del graph
+    from repro_torch.core import PLAN_CACHE
+    PLAN_CACHE.clear()  # the captured graphs and their pools
     free_device_memory()
 
     # 5. DLRM serving
@@ -934,11 +1155,14 @@ def main() -> int:
     free_device_memory()
     for row in rows:
         row["launches"] = launches[row["kernel"]]
+        if row["kernel"] in device_launches:
+            row["device_launches"] = device_launches[row["kernel"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
     out.write_text(json.dumps(dict(card=card, build_seconds=build_s,
-                                   kernels=rows, runs=runs, dlrm=dlrm,
+                                   kernels=rows, runs=runs,
+                                   dispatch=dispatch, dlrm=dlrm,
                                    attention=attn), indent=1))
     # 7. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))

@@ -36,7 +36,7 @@ def bfs(source: int = 0, max_iters: int = 4096) -> VertexProgram:
         active[source] = True
         return active
 
-    def init(graph):
+    def init(graph, key=None):
         depth = torch.full((graph.n_nodes,), _UNSEEN, dtype=torch.int32)
         depth[source] = 0
         return {"depth": depth, "active": frontier_init(graph),

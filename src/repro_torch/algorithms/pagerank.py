@@ -31,7 +31,7 @@ def pagerank(damping: float = 0.85, tol: float = 1e-6,
         gatherable=False,
     )
 
-    def init(graph):
+    def init(graph, key=None):
         v = graph.n_nodes
         out_deg = torch.as_tensor(graph.out_degree)
         return {

@@ -31,7 +31,7 @@ def sssp(source: int = 0, max_iters: int = 4096) -> VertexProgram:
         active[source] = True
         return active
 
-    def init(graph):
+    def init(graph, key=None):
         dist = torch.full((graph.n_nodes,), float("inf"), dtype=torch.float32)
         dist[source] = 0.0
         return {"dist": dist, "active": frontier_init(graph),

@@ -15,25 +15,29 @@ edge-propagated updates execute.  The config picks:
 through :class:`~repro_torch.kernels.segment_reduce.BlockedSegmentReducer`,
 whose CUDA kernels own each output block in shared memory.
 
-Dynamic (``PUSH_PULL``) configs keep both edge orders live and pick one
-per iteration.  The reference picks inside one compiled program with
-``lax.cond``; eager PyTorch reads the device's choice on the host
-instead.  Every such read is a host sync, counted on the context and
-reported as :attr:`RunResult.host_syncs`: one per iteration for the
-convergence test, one more per iteration for a dynamic config's
-direction, and one more on each sparse push iteration for the fit of
-the gathered edge list.
+Every data-dependent choice of a step (the direction of a dynamic
+config, the fit of the gathered edge list, BC's phase) goes through one
+primitive, :meth:`EdgeContext.branch`.  The reference picks inside one
+compiled program with ``lax.cond``.  Here the engine decides how:
 
-``run`` drives a program to convergence with the host engine: one step
-per iteration with a blocking convergence read in between.  The fused
-engine (the whole loop captured on the device) is not ported yet.
+- the host engine reads the device's bool on the host and runs one
+  branch; every such read is a host sync, counted on the context and
+  reported as :attr:`RunResult.host_syncs`;
+- the fused engine (:mod:`repro_torch.core.capture`) records the two
+  branches as conditional IF nodes of a CUDA graph, so nothing is read
+  on the host inside a step.
+
+``run`` drives a program to convergence with either engine; "fused",
+the default as in the reference, replays a captured graph of
+:data:`~repro_torch.core.capture.STEPS_PER_LAUNCH` guarded steps and
+polls ``done`` once per replay.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import weakref
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -69,6 +73,12 @@ def _check_autotune(autotune) -> None:
             "(ROADMAP.md, queue 1, item 4); use autotune='off'")
     raise ValueError(f"unknown autotune mode {autotune!r}; expected "
                      "'off', 'heuristic', 'measure' or a bool")
+
+
+def _capturing() -> bool:
+    """True while the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
 
 
 def _pad_reshape(arr: torch.Tensor, n_chunks: int, fill) -> torch.Tensor:
@@ -152,9 +162,16 @@ class EdgeContext:
         n_chunks = 1 if config.consistency is Consistency.DRF0 \
             else config.n_chunks
         v = graph.n_nodes
-        self._static_pull = torch.tensor(config.prop is UpdateProp.PULL,
-                                         device=self.device)
+        # device constants made once: a step captured into a CUDA graph
+        # may not copy a host value to the device
+        self._flags = (torch.tensor(False, device=self.device),
+                       torch.tensor(True, device=self.device))
+        self._static_pull = self._flags[config.prop is UpdateProp.PULL]
         self._dense_occ = dense_occupancy(self.device)
+        #: how :meth:`branch` runs while an engine drives a step: None
+        #: for the host engine's eager read, else an engine's control
+        #: (:mod:`repro_torch.core.capture`)
+        self.control = None
 
         # Chunked edge orders per direction, int64 ids for indexing and
         # scatter.  Padding edges carry the sentinel id V on both
@@ -214,9 +231,38 @@ class EdgeContext:
         return self._graph_strong or self._graph_ref()
 
     def _read(self, flag: torch.Tensor) -> bool:
-        """Read a device bool on the host: one counted host sync."""
+        """Read a device bool on the host: one counted host sync.  Raises
+        inside a CUDA graph capture, where a host read is a bug."""
+        if _capturing():
+            raise RuntimeError(
+                "EdgeContext._read: a host read of a device value inside a "
+                "CUDA graph capture; route the choice through "
+                "EdgeContext.branch")
         self.host_syncs += 1
         return bool(flag)
+
+    def branch(self, pred: torch.Tensor, true_fn: Callable[[], Any],
+               false_fn: Callable[[], Any]):
+        """``true_fn()`` if the device bool ``pred`` holds, else
+        ``false_fn()``: the one primitive of every data-dependent choice
+        in a step (the reference's ``lax.cond``).
+
+        Both functions take no argument and return tensors (or dicts and
+        tuples of them) of the same structure, shapes and dtypes.  The
+        host engine reads ``pred`` (one counted host sync) and runs one
+        function; under the fused engine :attr:`control` decides (two
+        conditional IF nodes when capturing a CUDA graph).
+        """
+        if self.control is None:
+            return true_fn() if self._read(pred) else false_fn()
+        return self.control.branch(pred, true_fn, false_fn)
+
+    def cond_per_graph(self, pred, true_fn, false_fn, state):
+        """Per-graph two-way branch over a whole state dict
+        (``executor.py:418``): sequentially, :meth:`branch` with
+        ``pred`` a bool scalar."""
+        return self.branch(torch.as_tensor(pred).reshape(()),
+                           lambda: true_fn(state), lambda: false_fn(state))
 
     # ------------------------------------------------------------------
     def resolve_direction(self,
@@ -244,8 +290,9 @@ class EdgeContext:
         config's direction wins."""
         if self.config.prop is not UpdateProp.PUSH_PULL:
             return self._static_pull
-        return torch.as_tensor(want_pull, dtype=torch.bool,
-                               device=self.device)
+        if isinstance(want_pull, torch.Tensor):
+            return want_pull.to(dtype=torch.bool).reshape(())
+        return self._flags[bool(want_pull)]
 
     # ------------------------------------------------------------------
     # Per-graph helpers: trivial here; a batched context would give
@@ -280,13 +327,15 @@ class EdgeContext:
     def propagate_dynamic(self, state, phase: EdgePhase, pull,
                           dtype=torch.float32) -> torch.Tensor:
         """``propagate`` with the direction given by a bool tensor
-        (True = pull).  A static config ignores it; a dynamic one reads
-        it on the host and runs that one direction."""
+        (True = pull).  A static config ignores it; a dynamic one runs
+        the chosen direction through :meth:`branch`."""
         if self.config.prop is not UpdateProp.PUSH_PULL:
             return self._propagate(state, phase,
                                    self.resolve_direction(None), dtype)
-        direction = UpdateProp.PULL if self._read(pull) else UpdateProp.PUSH
-        return self._propagate(state, phase, direction, dtype)
+        return self.branch(
+            pull,
+            lambda: self._propagate(state, phase, UpdateProp.PULL, dtype),
+            lambda: self._propagate(state, phase, UpdateProp.PUSH, dtype))
 
     def propagate_sparse(self, state, phase: EdgePhase, pull,
                          dtype=torch.float32):
@@ -305,20 +354,29 @@ class EdgeContext:
                 or phase.frontier is None or not phase.gatherable
                 or self.sparse_edge_capacity == 0):
             return self.propagate_dynamic(state, phase, pull, dtype), dense_occ
-        if self._read(pull):
-            return self._propagate(state, phase, UpdateProp.PULL,
-                                   dtype), dense_occ
-        front = dense_to_sparse(phase.frontier(state),
-                                self._sparse_vertex_capacity)
-        edges = gather_frontier_edges(front.ids, self._row_ptr_out,
-                                      self.sparse_edge_capacity)
-        fits = ~front.overflowed & ~edges.overflowed
-        occ = torch.where(fits, edges.count.float() * self._inv_capacity,
-                          dense_occ)
-        if self._read(fits):
-            return self._propagate_gathered(state, phase, edges.edge_ids,
-                                            dtype), occ
-        return self._propagate(state, phase, UpdateProp.PUSH, dtype), occ
+
+        def dense_pull():
+            return (self._propagate(state, phase, UpdateProp.PULL, dtype),
+                    dense_occ)
+
+        def push():
+            front = dense_to_sparse(phase.frontier(state),
+                                    self._sparse_vertex_capacity)
+            edges = gather_frontier_edges(front.ids, self._row_ptr_out,
+                                          self.sparse_edge_capacity)
+            fits = ~front.overflowed & ~edges.overflowed
+            occ = torch.where(fits,
+                              edges.count.float() * self._inv_capacity,
+                              dense_occ)
+            out = self.branch(
+                fits,
+                lambda: self._propagate_gathered(state, phase,
+                                                 edges.edge_ids, dtype),
+                lambda: self._propagate(state, phase, UpdateProp.PUSH,
+                                        dtype))
+            return out, occ
+
+        return self.branch(pull, dense_pull, push)
 
     def _propagate_gathered(self, state, phase: EdgePhase,
                             edge_ids: torch.Tensor, dtype) -> torch.Tensor:
@@ -401,11 +459,14 @@ class RunResult:
     #: per-iteration sparse-gather occupancy (-1.0 for a dense
     #: iteration); None for programs without the protocol.
     occupancy_trace: Optional[List[float]] = None
-    #: which execution engine produced this result.
-    engine: str = "host"
-    #: timed program steps this run issued (one per iteration).
+    #: which execution engine produced this result ("fused" | "host").
+    engine: str = "fused"
+    #: timed dispatches this run issued: one step per iteration for the
+    #: host engine, one graph launch per ``STEPS_PER_LAUNCH`` iterations
+    #: for the fused engine (the reference's fused engine makes one).
     dispatches: int = 0
-    #: blocking device-to-host reads inside the timed loop.
+    #: blocking device-to-host reads inside the timed loop (the fused
+    #: engine: one poll of ``done`` per launch).
     host_syncs: int = 0
     #: "converged" | "iter_limit".
     outcome: Optional[str] = None
@@ -438,13 +499,26 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _decode_traces(dirs: Optional[torch.Tensor],
+                   occs: Optional[torch.Tensor]) -> tuple:
+    """Direction letters and occupancy floats of per-iteration trace
+    tensors (None where the program records none)."""
+    trace = None if dirs is None else "".join(
+        "T" if d else "S" for d in dirs.tolist())
+    return trace, None if occs is None else occs.tolist()
+
+
 def _run_host(program: VertexProgram, ctx: EdgeContext, state,
               limit: int) -> RunResult:
     """One step per iteration plus a blocking convergence read between
     steps (``executor.py:705-755``).  One untimed step on a copy of the
-    state builds the kernels and warms the caches first.  Trace scalars
-    are kept on the device and read once, after the timer stops."""
-    program.step(ctx, {k: t.clone() for k, t in state.items()}, 0)
+    state builds the kernels and warms the caches first.  ``it`` reaches
+    the step as a device int32 scalar, as the reference's traced
+    counter: a view into one ``arange`` made before the timer, so the
+    counter costs no launch per iteration.  Trace scalars stay on the
+    device and are read once, after the timer stops."""
+    its = torch.arange(max(limit, 1), dtype=torch.int32, device=ctx.device)
+    program.step(ctx, {k: t.clone() for k, t in state.items()}, its[0])
     _synchronize(ctx.device)
     traced, occ_traced = _trace_flags(program, state)
     dir_raw: List[torch.Tensor] = []
@@ -453,7 +527,7 @@ def _run_host(program: VertexProgram, ctx: EdgeContext, state,
     t0 = time.perf_counter()
     it, done = 0, False
     while it < limit:
-        new = program.step(ctx, state, it)
+        new = program.step(ctx, state, its[it])
         done_dev = program.converged(state, new)
         state = new
         it += 1
@@ -467,21 +541,19 @@ def _run_host(program: VertexProgram, ctx: EdgeContext, state,
     _synchronize(ctx.device)
     dt = time.perf_counter() - t0
     syncs = ctx.host_syncs - syncs
-    trace = occ_trace = None
-    if traced:
-        trace = "".join("T" if d else "S"
-                        for d in torch.stack(dir_raw).tolist())
-    if occ_traced:
-        occ_trace = torch.stack(occ_raw).tolist()
+    trace, occ_trace = _decode_traces(
+        torch.stack(dir_raw) if traced else None,
+        torch.stack(occ_raw) if occ_traced else None)
     return RunResult(state=state, iterations=it, seconds=dt, converged=done,
                      direction_trace=trace, occupancy_trace=occ_trace,
                      engine="host", dispatches=it, host_syncs=syncs)
 
 
 def run(program: VertexProgram, graph: Graph, config: SystemConfig,
+        key: Optional[torch.Generator] = None,
         max_iters: Optional[int] = None, use_kernels: bool = False,
         sparse_edge_capacity: Optional[int] = None,
-        engine: str = "host", autotune=None, device=None) -> RunResult:
+        engine: str = "fused", autotune=None, device=None) -> RunResult:
     """Iterate ``program`` on ``graph`` under ``config`` to convergence
     (``executor.py:830``).
 
@@ -489,24 +561,33 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
     ``RuntimeError`` unless ``device='cpu'`` is passed.
     ``use_kernels=True`` runs the owned push order and the pull order
     through the blocked CUDA reducers (on a CPU device, through their
-    plain versions).  ``engine`` is "host"; "fused" is not ported yet.
-    ``autotune`` accepts only "off".  The reference's resilience,
-    batching and specialization knobs are not accepted yet.
+    plain versions).  ``key`` is a ``torch.Generator`` handed to
+    ``program.init(graph, key)`` for programs with randomized init.
+
+    ``engine`` picks the convergence loop: "fused" (default) replays a
+    captured CUDA graph of guarded steps with one blocking read of
+    ``done`` per replay (:mod:`repro_torch.core.capture`; on a CPU
+    device the same guarded steps run eagerly); "host" is the
+    step-per-iteration oracle it is tested against.  Both give the same
+    states, iteration counts and traces.  ``autotune`` accepts only
+    "off".  The reference's resilience, batching and specialization
+    knobs are not accepted yet.
     """
     if engine not in ("fused", "host"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'fused' or 'host'")
-    if engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' (the whole loop captured as a CUDA graph) is "
-            "not ported yet: ROADMAP.md, queue 1, 'Next slice', item 1; "
-            "use engine='host'")
     device = resolve_device(device)
     ctx = EdgeContext.create(graph, config, use_kernels=use_kernels,
                              sparse_edge_capacity=sparse_edge_capacity,
                              autotune=autotune, device=device)
-    state = {k: torch.as_tensor(t).to(device)
-             for k, t in program.init(graph).items()}
-    res = _run_host(program, ctx, state, max_iters or program.max_iters)
+    init = program.init(graph, key) if key is not None \
+        else program.init(graph)
+    state = {k: torch.as_tensor(t).to(device) for k, t in init.items()}
+    limit = max_iters or program.max_iters
+    if engine == "fused":
+        from repro_torch.core.capture import run_fused
+        res = run_fused(program, ctx, state, limit)
+    else:
+        res = _run_host(program, ctx, state, limit)
     res.config_name = config.name
     return res

@@ -35,24 +35,36 @@ class PlanCache:
         self.misses = 0
 
     def get(self, graph: Any, kind: str, params: Hashable,
-            build: Callable[[], Any]) -> Any:
+            build: Callable[[], Any], capacity: int | None = None) -> Any:
         """Return the cached artifact, building and caching it on a miss.
 
         ``params`` must capture everything ``build`` depends on besides
-        the graph itself.
+        the graph itself.  ``capacity`` bounds the entries of this
+        ``(graph, kind)`` bucket: on insert, the least recently used
+        beyond it are dropped (``plan_cache.py:87-126``), as the fused
+        engine's captured graphs would otherwise pile up per program.
         """
         key = (id(graph), kind, params)
         with self._lock:
             self._prune()
             if key in self._store:
                 self.hits += 1
-                return self._store[key]
+                # dict order is the recency order
+                value = self._store.pop(key)
+                self._store[key] = value
+                return value
             self.misses += 1
             self._watch(graph)
         # build outside the lock: builders recurse into the cache
         value = build()
         with self._lock:
-            return self._store.setdefault(key, value)
+            value = self._store.setdefault(key, value)
+            if capacity is not None:
+                bucket = [k for k in self._store
+                          if k[0] == key[0] and k[1] == kind]
+                for stale in bucket[:-capacity]:
+                    del self._store[stale]
+            return value
 
     def _watch(self, graph: Any) -> None:
         gid = id(graph)

@@ -86,14 +86,16 @@ class EdgePhase:
 class VertexProgram:
     """A graph algorithm: state init, per-iteration step, convergence.
 
-    ``init(graph)`` returns the initial state as CPU tensors; ``run``
+    ``init(graph, key=None)`` returns the initial state as CPU tensors
+    (``key``: a ``torch.Generator`` for randomized programs); ``run``
     moves it to the run's device.  ``step(ctx, state, it)`` returns the
-    next state, and ``converged(prev, cur)`` a bool scalar tensor.
+    next state, with ``it`` the iteration as a device int32 scalar, and
+    ``converged(prev, cur)`` a bool scalar tensor.
     Frontier-aware programs set ``frontier_update`` and record their
     per-iteration direction under :data:`FRONTIER_DIR_KEY`.
     """
     name: str
-    init: Callable[..., State]                         # (graph) -> state
+    init: Callable[..., State]                         # (graph, key)
     step: Callable[..., State]                         # (ctx, state, it)
     converged: Callable[[State, State], torch.Tensor]  # (prev, cur) -> bool
     extract: Callable[[State], Any]

@@ -7,6 +7,7 @@ here needs ``nvcc``: only the names are computed.
 """
 import pytest
 
+from repro_torch.core.capture import SOURCE as GRAPH_IF
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import build_key
 from repro_torch.kernels.embedding_bag import SOURCE as EMBAG
@@ -53,7 +54,8 @@ def test_build_key_refuses_a_missing_header(sources):
 
 
 @pytest.mark.parametrize("source,headers", [
-    (SEGMENT, []), (EMBAG, []), (FLASH, ["flash_attention_sm90.cuh"])])
+    (SEGMENT, []), (EMBAG, []), (FLASH, ["flash_attention_sm90.cuh"]),
+    (GRAPH_IF, [])])
 def test_kernel_sources_are_keyed_on_their_headers(source, headers):
     files = _build._local_files(source)
     assert files[0] == source.resolve()

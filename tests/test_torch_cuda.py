@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.algorithms import bfs, pagerank, sssp
-from repro_torch.core import SystemConfig, run
+from repro_torch.algorithms import REGISTRY, bfs, pagerank, sssp
+from repro_torch.core import PLAN_CACHE, SystemConfig, capture, run
 from repro_torch.graph import powerlaw_graph
 from repro_torch.kernels.embedding_bag import (MAX_TABLES, embag,
                                                embag_tables, embedding_bag_ref,
@@ -270,6 +270,201 @@ def test_main_path_on_the_card_matches_the_cpu(cuda_device, cfg):
             assert gpu.iterations == cpu.iterations
             assert gpu.direction_trace == cpu.direction_trace
             assert gpu.occupancy_trace == cpu.occupancy_trace
+
+
+@pytest.fixture(scope="module")
+def engine_graph():
+    return powerlaw_graph(3000, 20000, alpha=1.2, seed=7, weighted=True,
+                          block_size=64)
+
+
+def _engines(app, g, cfg, dev):
+    """The host and the fused engine on one cell, with the kernels; MIS
+    and CLR draw their priorities from the same seeded generator."""
+    program = REGISTRY[app]()
+    kw = dict(use_kernels=True, device=dev)
+    if app in ("MIS", "CLR"):
+        key = lambda: torch.Generator().manual_seed(11)  # noqa: E731
+        host = run(program, g, SystemConfig.from_name(cfg), engine="host",
+                   key=key(), **kw)
+        fused = run(program, g, SystemConfig.from_name(cfg), key=key(), **kw)
+    else:
+        host = run(program, g, SystemConfig.from_name(cfg), engine="host",
+                   **kw)
+        fused = run(program, g, SystemConfig.from_name(cfg), **kw)
+    assert fused.engine == "fused" and fused.converged and host.converged
+    k = capture.STEPS_PER_LAUNCH
+    assert fused.dispatches == fused.host_syncs == -(-fused.iterations // k)
+    return fused, host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ["SD1", "TG0", "DD1"])
+@pytest.mark.parametrize("app", ["BFS", "SSSP", "CC", "MIS", "CLR"])
+def test_fused_equals_host_on_the_card(cuda_device, engine_graph, app, cfg):
+    fused, host = _engines(app, engine_graph, cfg, cuda_device)
+    assert fused.iterations == host.iterations
+    assert fused.direction_trace == host.direction_trace
+    assert fused.occupancy_trace == host.occupancy_trace
+    for key, want in host.state.items():
+        assert torch.equal(fused.state[key], want), (app, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ["SD1", "DD1"])
+@pytest.mark.parametrize("app", ["PR", "BC"])
+def test_fused_float_apps_agree_with_host_on_the_card(cuda_device,
+                                                      engine_graph, app, cfg):
+    # K1's float sum adds in a run-dependent order on the card
+    fused, host = _engines(app, engine_graph, cfg, cuda_device)
+    assert abs(fused.iterations - host.iterations) <= 1
+    key = "rank" if app == "PR" else "delta"
+    torch.testing.assert_close(fused.state[key], host.state[key],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_replays_make_no_hidden_sync(cuda_device, engine_graph,
+                                           monkeypatch):
+    """Every launch runs under ``set_sync_debug_mode("error")``; only the
+    counted polls between them read the device."""
+    launch = capture._Fused.launch
+
+    def strict(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(capture._Fused, "launch", strict)
+    program = REGISTRY["BC"]()  # every kind of IF node, nested 4 deep
+    run(program, engine_graph, SystemConfig.from_name("DD1"),
+        use_kernels=True, device=cuda_device)
+    res = run(program, engine_graph, SystemConfig.from_name("DD1"),
+              use_kernels=True, device=cuda_device)
+    assert res.converged and res.host_syncs == res.dispatches
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # the mode does catch a read of the device
+        with pytest.raises(RuntimeError):
+            bool(torch.ones((), device=cuda_device))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_a_host_read_in_a_step_fails_before_the_capture(cuda_device,
+                                                        engine_graph):
+    """A step that reads the device on the host could not be captured:
+    the warm-up, which makes synchronizing operations raise, stops the
+    run first.  Nothing is cached, no stream is left capturing, and the
+    next fused run works."""
+    import dataclasses
+    program = bfs()
+    reads = dataclasses.replace(program, step=lambda ctx, st, it: (
+        bool(st["active"].any()), program.step(ctx, st, it))[1])
+    config = SystemConfig.from_name("DD1")
+    PLAN_CACHE.clear()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        run(reads, engine_graph, config, use_kernels=True,
+            device=cuda_device)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert PLAN_CACHE.kinds().get("exec_fn", 0) == 0
+    res = run(program, engine_graph, config, use_kernels=True,
+              device=cuda_device)
+    host = run(program, engine_graph, config, use_kernels=True,
+               engine="host", device=cuda_device)
+    assert res.converged and torch.equal(res.state["depth"],
+                                         host.state["depth"])
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_is_discarded_cleanly(cuda_device, engine_graph):
+    """An error raised while a step is being recorded (here by the step
+    itself, inside the live IF body) ends every open capture and drops
+    the graph; the next fused run captures and runs as usual."""
+    import dataclasses
+    program = bfs()
+
+    def step(ctx, st, it):
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("refused while recording")
+        return program.step(ctx, st, it)
+
+    config = SystemConfig.from_name("DD1")
+    PLAN_CACHE.clear()
+    with pytest.raises(ValueError, match="refused while recording"):
+        run(dataclasses.replace(program, step=step), engine_graph, config,
+            use_kernels=True, device=cuda_device)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert PLAN_CACHE.kinds().get("exec_fn", 0) == 0
+    res = run(program, engine_graph, config, use_kernels=True,
+              device=cuda_device)
+    host = run(program, engine_graph, config, use_kernels=True,
+               engine="host", device=cuda_device)
+    assert res.converged and torch.equal(res.state["depth"],
+                                         host.state["depth"])
+
+
+INVALIDATED = """
+import contextlib, dataclasses
+from repro_torch.algorithms import bfs
+from repro_torch.core import SystemConfig, capture, run
+from repro_torch.graph import powerlaw_graph
+capture._no_host_reads = lambda device: contextlib.nullcontext()
+program = bfs()
+reads = dataclasses.replace(program, step=lambda ctx, st, it: (
+    bool(st["active"].any()), program.step(ctx, st, it))[1])
+try:
+    run(reads, powerlaw_graph(300, 1500, seed=1, block_size=64),
+        SystemConfig.from_name("SD1"), use_kernels=True)
+except RuntimeError as exc:
+    print("raised:", exc, flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_an_invalidated_capture_raises_a_clear_error(cuda_device):
+    """With the warm-up's guard off, a host read inside the capture
+    invalidates it; the run raises an error that says the process cannot
+    use the device again, instead of crashing while ending the
+    captures.  Run in its own process, which it leaves unusable: that
+    process aborts at exit, when PyTorch frees the graph's memory pool
+    while its streams are still capturing."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", INVALIDATED], cwd=root,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(root / "src")},
+                          capture_output=True, text=True, timeout=300)
+    assert "raised: a CUDA graph capture was invalidated" in proc.stdout, \
+        proc.stdout + proc.stderr
+
+
+@pytest.mark.cuda
+def test_a_repeat_run_replays_the_cached_graph(cuda_device, engine_graph):
+    from torch.profiler import ProfilerActivity, profile
+    program = bfs()
+    config = SystemConfig.from_name("DD1")
+    PLAN_CACHE.clear()  # count this graph's entries only
+    first = run(program, engine_graph, config, use_kernels=True,
+                device=cuda_device)
+    graphs = PLAN_CACHE.kinds()["exec_fn"]
+    launches = seg_minmax.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = run(program, engine_graph, config, use_kernels=True,
+                    device=cuda_device)
+    # no capture and no wrapper call: the cached graph ran K2
+    assert PLAN_CACHE.kinds()["exec_fn"] == graphs
+    assert seg_minmax.launches == launches
+    names = [e.key for e in prof.key_averages()]
+    assert any("seg_reduce_kernel" in n for n in names), names
+    assert again.iterations == first.iterations
+    assert again.direction_trace == first.direction_trace
+    for key, want in first.state.items():
+        assert torch.equal(again.state[key], want), key
 
 
 @pytest.mark.cuda

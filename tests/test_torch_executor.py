@@ -85,14 +85,17 @@ def test_sparse_frontier_and_edge_gather_match_reference(graphs, density,
 
 def test_host_syncs_are_counted_per_iteration(graphs):
     _, g = graphs
-    static = run(bfs(), g, SystemConfig.from_name("SG0"), device="cpu")
+    static = run(bfs(), g, SystemConfig.from_name("SG0"), device="cpu",
+                 engine="host")
     assert static.host_syncs == static.iterations  # the convergence read
-    dyn = run(bfs(), g, SystemConfig.from_name("DD1"), device="cpu")
+    dyn = run(bfs(), g, SystemConfig.from_name("DD1"), device="cpu",
+              engine="host")
     pushes = dyn.direction_trace.count("S")
     # convergence + direction every iteration, the gather fit on pushes
     assert dyn.host_syncs == 2 * dyn.iterations + pushes
     assert dyn.sparse_iterations > 0
-    pr = run(pagerank(), g, SystemConfig.from_name("DG0"), device="cpu")
+    pr = run(pagerank(), g, SystemConfig.from_name("DG0"), device="cpu",
+             engine="host")
     assert pr.host_syncs == 2 * pr.iterations  # not gatherable
     assert pr.dispatches == pr.iterations and pr.engine == "host"
 
@@ -108,15 +111,18 @@ def test_iteration_limit_reports_not_converged(graphs):
 def test_knobs_not_ported_yet_raise(graphs):
     _, g = graphs
     cfg = SystemConfig.from_name("SD1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(bfs(), g, cfg, device="cpu", engine="fused")
+    # the fused engine is the default now, and ``key`` is accepted
+    res = run(bfs(), g, cfg, device="cpu", engine="fused",
+              key=torch.Generator().manual_seed(0))
+    assert res.engine == "fused" and res.converged
+    assert run(bfs(), g, cfg, device="cpu").engine == "fused"
     with pytest.raises(ValueError, match="engine"):
         run(bfs(), g, cfg, device="cpu", engine="jit")
     with pytest.raises(NotImplementedError, match="autotune"):
         run(bfs(), g, cfg, device="cpu", autotune="measure")
     with pytest.raises(ValueError, match="autotune"):
         run(bfs(), g, cfg, device="cpu", autotune="sometimes")
-    for knob in ("checkpoint_every", "retry", "specialize", "key"):
+    for knob in ("checkpoint_every", "retry", "specialize"):
         with pytest.raises(TypeError):
             run(bfs(), g, cfg, device="cpu", **{knob: 1})
 
