@@ -74,6 +74,30 @@ script exits non-zero:
    for PR TG0 and BFS DD1 on the AMZ stand-in.  Profiled runs (device
    busy time against the span) of SG0, SG1 and DD1 under both engines,
    and of SG0 fused at each K.
+4c. autotune: with the K1/K2 counts set to 0, time every candidate
+   plan of the owned and the pull order on the AMZ stand-in
+   (``kernels/autotune.py:tune``: CUDA events, best of 5, one sum and
+   one min per call, D = 1), each held against the plain versions on
+   its own plan; ``autotune_plan(mode="measure")`` with the disk cache
+   off; then BFS SD1 and PR TG0 with the kernels under ``autotune`` off,
+   heuristic and measure (1 untimed + 3 timed runs each): BFS bit-equal
+   across the modes, PR within atol 1e-6 (iterations +-1), and exactly
+   one captured graph per distinct set of plans.
+4d. batch: with the K1/K2 counts set to 0, ``run_batch`` on 64 R-MAT
+   graphs of scale 14 (``rmat_batch(64, 14, 8, seed=7)``, weighted; one
+   bucket, 2,097,152 packed vertices and 16,777,216 edge slots; packed
+   once on the host, outside every timer) in every graph cell of phase
+   4 with the kernels (1 untimed + 3 timed batches), against the
+   sequential fused runs of every 8th graph: bit for bit, PR and BC to
+   phase 4's tolerances (PR's iterations +-1); launches, polls, peak
+   ``max_memory_allocated`` and ``memory_reserved``; BFS SD1 and PR SD1
+   once more under the profiler, which must show K2 and K1 among their
+   device ops (taken again, up to 5 times, while the tracer misses it).  One
+   ``run_batch_slice`` roster (CLR SD1, 8 slots joining at different
+   iterations, one parked, slices of 4) against the sequential runs.
+   Then ``repro_torch.benchmarks.batch`` at its pinned workload (R-MAT
+   scale 6, BFS, B in 1, 4, 16, 64, 18 configs, best of 5; writes
+   ``results/torch/BENCH_batch.json``).
 5. DLRM serving: MLPerf DLRM (Criteo 1TB) at full width with every
    table capped at 16,000,000 rows (43.0 GB of float32 tables; the
    full 96.1 GB do not fit one 80 GB card), random weights from a
@@ -195,6 +219,27 @@ DLRM_REQUESTS = {"serve_p99": 8, "serve_bulk": 4, "retrieval_cand": 4}
 EMBAG_VARIANTS = [(g, t) for g in (1, 2, 4) for t in (128, 256)]
 #: device ops printed per profiled request
 PROFILE_TOP = 8
+#: the autotune phase's cells (app, config), each under every mode, and
+#: the sweep's best-of repeats
+TUNE_CELLS = [("BFS", "SD1"), ("PR", "TG0")]
+TUNE_MODES = ("off", "heuristic", "measure")
+TUNE_REPEATS = 5
+#: the serving-width batch: 64 R-MAT graphs of scale 14 (one bucket,
+#: n_q = 32,768, m_q = 262,144), its cells, and every how many graphs
+#: one is also run sequentially
+BATCH_GRAPHS = dict(count=64, scale=14, edge_factor=8, seed=7)
+BATCH_CELLS = GRAPH_CELLS
+BATCH_SEQ_EVERY = 8
+#: the batch cells run once more under the profiler, one per kernel, and
+#: how many profiles of one are taken until one shows its kernel
+BATCH_PROFILED = {("BFS", "SD1"): "seg_minmax", ("PR", "SD1"): "seg_sum"}
+PROFILE_ATTEMPTS = 5
+#: the run_batch_slice roster: app, config, slots, the iteration each
+#: slot joins at, the parked slot and the slice length
+SLICE_CELL = ("CLR", "SD1")
+SLICE_JOINS = (0, 1, 2, 3, 5, 8, 0, 4)
+SLICE_PARKED = 6
+SLICE_LEN = 4
 
 
 def log(*parts) -> None:
@@ -1084,6 +1129,346 @@ def dispatch_phase(graph, dev) -> dict:
     return record
 
 
+def _seg_counts() -> dict:
+    from repro_torch.kernels.segment_reduce import seg_minmax, seg_sum
+    return {"seg_sum": seg_sum.launches, "seg_minmax": seg_minmax.launches}
+
+
+def _zero_seg_counts() -> None:
+    from repro_torch.kernels.segment_reduce import seg_minmax, seg_sum
+    seg_sum.launches = seg_minmax.launches = 0
+
+
+def autotune_phase(graph, dev) -> tuple:
+    """The tuner on the AMZ stand-in: every candidate of the owned and
+    the pull order timed (CUDA events, best of TUNE_REPEATS, one sum and
+    one min per call, D = 1) and held against the plain versions on its
+    own plan, ``autotune_plan(mode="measure")`` with the disk cache off,
+    then BFS SD1 and PR TG0 with the kernels under every autotune mode:
+    BFS bit-equal across modes, PR within atol 1e-6, and one captured
+    graph per distinct set of plans.  The K1/K2 counts are set to 0
+    first and read last."""
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.core import PLAN_CACHE, SystemConfig, run
+    from repro_torch.core.executor import EdgeContext
+    from repro_torch.kernels import autotune as at
+    _zero_seg_counts()
+    rng = np.random.default_rng(3)
+    record = dict(orders={}, runs=[])
+    for order in ("owned", "pull"):
+        res = at.tune(graph, order=order, repeats=TUNE_REPEATS, device=dev)
+        cands = []
+        for plan, seconds in res.measurements:
+            red = at.build_reducer(graph, order, plan, device=dev)
+            for (d, name, dtype, kind, kernel, plain, _,
+                 _) in _segment_cases(red, dev, rng):
+                if d == 1 and dtype == torch.float32 and kind in ("sum",
+                                                                  "min"):
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    _agree(got, want, name, dtype, kind,
+                           f"{order} {plan.astuple()}")
+            cands.append(dict(plan=list(plan.astuple()), ms=seconds * 1e3,
+                              block_size=red.block_size,
+                              chunks=red.chunks.n_chunks))
+            log(f"autotune {order} candidate tile_e={plan.tile_e} "
+                f"block_mult={plan.block_mult} block_div={plan.block_div}: "
+                f"ms={seconds * 1e3:.4f} block_size={red.block_size} "
+                f"chunks={red.chunks.n_chunks} (checked against plain)")
+            del red
+        chosen = at.autotune_plan(graph, order=order, mode="measure",
+                                  cache_path=None, device=dev)
+        record["orders"][order] = dict(
+            candidates=cands, winner=list(res.plan.astuple()),
+            default_ms=res.default_seconds * 1e3,
+            winner_ms=res.plan_seconds * 1e3,
+            best_ms=res.best_seconds * 1e3,
+            margin=res.speedup_vs_default,
+            autotune_plan=list(chosen.astuple()),
+            heuristic=list(at.suggest_plan(at.degree_features(graph),
+                                           order).astuple()))
+        log(f"autotune {order}: winner {res.plan.astuple()} "
+            f"{res.plan_seconds * 1e3:.4f} ms, default "
+            f"{res.default_seconds * 1e3:.4f} ms, margin over the default "
+            f"{res.speedup_vs_default:.3f}x; autotune_plan chose "
+            f"{chosen.astuple()}")
+    for app, cfg in TUNE_CELLS:
+        program, config = REGISTRY[app](), SystemConfig.from_name(cfg)
+        before = PLAN_CACHE.kind_stats("exec_fn")["entries"]
+        runs, sigs = {}, set()
+        for mode in TUNE_MODES:
+            ctx = EdgeContext.create(graph, config, use_kernels=True,
+                                     autotune=mode, device=dev)
+            sigs.add(ctx.plan_signature)
+            seconds = []
+            for i in range(TIMED_RUNS + 1):
+                res = run(program, graph, config, use_kernels=True,
+                          autotune=mode, device=dev)
+                if i:
+                    seconds.append(res.seconds)
+            runs[mode] = res
+            entry = dict(app=app, config=cfg, mode=mode,
+                         plans=[list(p) if p else None
+                                for p in ctx.plan_signature],
+                         seconds=statistics.median(seconds),
+                         seconds_runs=seconds, iterations=res.iterations)
+            record["runs"].append(entry)
+            log(f"autotune run {app} {cfg} autotune={mode}: "
+                f"fused_ms={entry['seconds'] * 1e3:.4f} (median of "
+                f"{TIMED_RUNS}) iterations={res.iterations} "
+                f"plans={entry['plans']}")
+        captured = PLAN_CACHE.kind_stats("exec_fn")["entries"] - before
+        log(f"autotune {app} {cfg}: {captured} captured graphs for "
+            f"{len(sigs)} distinct plan sets")
+        if captured != len(sigs):
+            raise AssertionError(f"{app} {cfg}: {captured} captured graphs "
+                                 f"for {len(sigs)} plan sets")
+        base = runs["off"]
+        for mode, res in runs.items():
+            if app == "PR":
+                if abs(res.iterations - base.iterations) > 1:
+                    raise AssertionError(f"PR autotune={mode}: iterations")
+                torch.testing.assert_close(res.state["rank"],
+                                           base.state["rank"], rtol=0,
+                                           atol=1e-6)
+            elif (res.iterations != base.iterations
+                  or res.direction_trace != base.direction_trace
+                  or not all(torch.equal(res.state[k], v)
+                             for k, v in base.state.items())):
+                raise AssertionError(f"{app} autotune={mode} differs from "
+                                     "autotune=off")
+    launches = _seg_counts()
+    log(f"autotune path launches: {json.dumps(launches)}")
+    if min(launches.values()) <= 0:
+        raise AssertionError("autotune path: a K1/K2 wrapper never launched")
+    return record, launches
+
+
+def _batch_same(app, cfg, got, want) -> None:
+    """A batched result against the sequential fused run of its graph:
+    bit for bit, PR and BC to FLOAT_APPS (K1's float atomics), PR's
+    iterations to +-1."""
+    what = f"batch {app} {cfg}"
+    if app == "PR":
+        if abs(got.iterations - want.iterations) > 1:
+            raise AssertionError(f"{what}: {got.iterations} iterations, "
+                                 f"sequential {want.iterations}")
+        n = min(got.iterations, want.iterations)
+        if got.direction_trace[:n] != want.direction_trace[:n]:
+            raise AssertionError(f"{what}: traces differ")
+    elif (got.iterations != want.iterations
+          or got.direction_trace != want.direction_trace
+          or got.occupancy_trace != want.occupancy_trace):
+        raise AssertionError(f"{what}: iterations or traces differ "
+                             f"({got.iterations} vs {want.iterations})")
+    for key, v in want.state.items():
+        if app in FLOAT_APPS and v.dtype == torch.float32:
+            torch.testing.assert_close(got.state[key], v, **FLOAT_APPS[app],
+                                       msg=what)
+        elif not torch.equal(got.state[key], v):
+            raise AssertionError(f"{what}: {key!r} differs")
+
+
+def _slice_roster(graphs, dev) -> dict:
+    """One ``run_batch_slice`` roster: slot i joins at iteration
+    SLICE_JOINS[i] (its state advanced by a sequential run), slot
+    SLICE_PARKED stays parked, slices of SLICE_LEN until every slot has
+    stopped; each live slot against its sequential run."""
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.core import (BatchedEdgeContext, SystemConfig,
+                                  get_graph_batch, run, run_batch_slice)
+    app, cfg = SLICE_CELL
+    program, config = REGISTRY[app](), SystemConfig.from_name(cfg)
+    batch = get_graph_batch(graphs)
+    bctx = BatchedEdgeContext.create(batch, config, use_kernels=True,
+                                     device=dev)
+    states, prefix = [], []
+    for g, j in zip(graphs, SLICE_JOINS):
+        if j:
+            r = run(program, g, config, max_iters=j, use_kernels=True,
+                    device=dev)
+            states.append(r.state)
+            prefix.append(r.direction_trace)
+        else:
+            states.append({k: torch.as_tensor(v).to(dev)
+                           for k, v in program.init(g).items()})
+            prefix.append("")
+    state = batch.pack_state(states, pad=program.state_pad)
+    b = len(graphs)
+    it_b = np.asarray(SLICE_JOINS, np.int32)
+    parked = np.arange(b) == SLICE_PARKED
+    conv = np.zeros(b, bool)
+    limit_b = np.full(b, program.max_iters, np.int32)
+    slices, launches, seconds = 0, 0, 0.0
+    while not (parked | conv | (it_b >= limit_b)).all():
+        out = run_batch_slice(program, batch, bctx, state, it_b,
+                              parked | conv, limit_b, SLICE_LEN)
+        slices, launches = slices + 1, launches + out.dispatches
+        seconds += out.seconds
+        for i in range(b):
+            prefix[i] += "".join("T" if d else "S" for d in
+                                 out.dir_cols[i, :out.advanced[i]])
+        state, it_b, conv = out.state, out.it_b, conv | out.converged_b
+    per = batch.unpack_state(state)
+    for i, g in enumerate(graphs):
+        if i == SLICE_PARKED:
+            if it_b[i] != SLICE_JOINS[i]:
+                raise AssertionError("slice roster: the parked slot moved")
+            continue
+        want = run(program, g, config, use_kernels=True, device=dev)
+        if (int(it_b[i]), bool(conv[i]), prefix[i]) != (
+                want.iterations, True, want.direction_trace):
+            raise AssertionError(f"slice roster slot {i}: {int(it_b[i])} "
+                                 f"iterations, sequential {want.iterations}")
+        for key, v in want.state.items():
+            if not torch.equal(per[i][key], v):
+                raise AssertionError(f"slice roster slot {i}: {key!r}")
+    log(f"batch slices {app} {cfg}: ok slots={b} joins={list(SLICE_JOINS)} "
+        f"parked={SLICE_PARKED} slice_len={SLICE_LEN} slices={slices} "
+        f"launches={launches} seconds={seconds:.4f} "
+        f"iterations={it_b.tolist()}")
+    return dict(app=app, config=cfg, slices=slices, launches=launches,
+                seconds=seconds, iterations=it_b.tolist())
+
+
+def batch_phase(dev) -> tuple:
+    """``run_batch`` at serving width (64 R-MAT graphs of scale 14 in one
+    bucket, 16,777,216 packed edge slots) on every graph cell, with the
+    kernels, against sequential fused runs of every BATCH_SEQ_EVERY-th
+    graph; one profiled batch per cell kernel; one slice roster; then
+    the pinned batch benchmark.  The K1/K2 counts are set to 0 first and
+    read before the benchmark."""
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.benchmarks.batch import run_batch_bench
+    from repro_torch.core import (SystemConfig, bucket_key, get_graph_batch,
+                                  run, run_batch)
+    from repro_torch.graph import rmat_batch
+    _zero_seg_counts()
+    t0 = time.perf_counter()
+    graphs = rmat_batch(weighted=True, **BATCH_GRAPHS)
+    gen_s = time.perf_counter() - t0
+    keys = {bucket_key(g) for g in graphs}
+    if len(keys) != 1:
+        raise AssertionError(f"batch: {len(keys)} buckets, expected one")
+    t0 = time.perf_counter()
+    batch = get_graph_batch(graphs)
+    pack_s = time.perf_counter() - t0
+    log(f"batch: {len(graphs)} graphs bucket={keys.pop()} "
+        f"edges per graph {min(g.n_edges for g in graphs)}.."
+        f"{max(g.n_edges for g in graphs)}, packed V={batch.packed.n_nodes} "
+        f"E={batch.packed.n_edges}; generated in {gen_s:.1f} s, packed on "
+        f"the host in {pack_s:.1f} s (cached, outside every timer)")
+    sample = graphs[::BATCH_SEQ_EVERY]
+    cells, device_launches = [], {"seg_sum": 0, "seg_minmax": 0}
+    for cfg, apps in BATCH_CELLS:
+        for app in apps:
+            program, config = REGISTRY[app](), SystemConfig.from_name(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            seconds = []
+            for i in range(TIMED_RUNS + 1):
+                got = run_batch(program, graphs, config, use_kernels=True,
+                                device=dev)
+                if i:
+                    seconds.append(sum(r.seconds for r in got))
+            peak = torch.cuda.max_memory_allocated(dev)
+            reserved = torch.cuda.memory_reserved(dev)
+            kname = BATCH_PROFILED.get((app, cfg))
+            prof, dl = None, None
+            # the tracer records a varying part of a replay's kernels
+            # (in one run none of K2's in one cell), so a profile
+            # without the kernel is taken again
+            for attempt in range(PROFILE_ATTEMPTS if kname else 0):
+                prof = profile_request(
+                    f"batch {app} {cfg}", lambda: run_batch(
+                        program, graphs, config, use_kernels=True,
+                        device=dev))
+                dl = _device_launches(prof)
+                if dl[kname] > 0:
+                    break
+            if kname and dl[kname] <= 0:
+                raise AssertionError(f"batch {app} {cfg}: the profiled "
+                                     f"replays executed no {kname}")
+            if dl:
+                for k, n in dl.items():
+                    device_launches[k] += n
+            seq = []
+            for j, g in enumerate(sample):
+                run(program, g, config, use_kernels=True, device=dev)
+                want = run(program, g, config, use_kernels=True, device=dev)
+                _batch_same(app, cfg, got[j * BATCH_SEQ_EVERY], want)
+                seq.append(want.seconds)
+            med = statistics.median(seconds)
+            seq_ms = statistics.mean(seq) * 1e3
+            entry = dict(
+                app=app, config=cfg, batch_ms=med * 1e3,
+                batch_ms_runs=[x * 1e3 for x in seconds],
+                ms_per_graph=med * 1e3 / len(graphs),
+                seq_ms_per_graph=seq_ms,
+                speedup=seq_ms / (med * 1e3 / len(graphs)),
+                iterations=max(r.iterations for r in got),
+                launches=got[0].dispatches, polls=got[0].host_syncs,
+                max_memory_allocated=peak, memory_reserved=reserved,
+                device_launches=dl, profile=prof)
+            cells.append(entry)
+            log(f"batch {app} {cfg}: ok batch_ms={entry['batch_ms']:.4f} "
+                f"ms_per_graph={entry['ms_per_graph']:.4f} "
+                f"seq_ms_per_graph={seq_ms:.4f} "
+                f"speedup={entry['speedup']:.2f} "
+                f"iterations={entry['iterations']} "
+                f"launches={entry['launches']} polls={entry['polls']} "
+                f"max_memory_allocated={peak} memory_reserved={reserved} "
+                f"device_launches={json.dumps(dl)} "
+                f"(median of {TIMED_RUNS} after 1 untimed; "
+                f"{len(sample)} graphs held against sequential runs)")
+    roster = _slice_roster(tuple(sample), dev)
+    launches = _seg_counts()
+    log(f"batch path launches: {json.dumps(launches)}; device launches "
+        f"(profiled batches): {json.dumps(device_launches)}")
+    if min(launches.values()) <= 0:
+        raise AssertionError("batch path: a K1/K2 wrapper never launched")
+    del batch, graphs, sample
+    from repro_torch.core import PLAN_CACHE
+    PLAN_CACHE.clear()
+    free_device_memory()
+    t0 = time.perf_counter()
+    bench = run_batch_bench(device=dev)
+    log(f"batch benchmark: {time.perf_counter() - t0:.1f} s, "
+        f"geomean speedup by B "
+        f"{json.dumps(bench['summary']['geomean_speedup_by_batch_size'])}")
+    # where a pinned-workload batch spends its time, against one graph
+    from repro_torch.benchmarks.batch import PINNED_WORKLOAD
+    pinned = rmat_batch(64, **PINNED_WORKLOAD)
+    program, config = REGISTRY["BFS"](), SystemConfig.from_name("SG0")
+    run_batch(program, pinned, config, device=dev)
+    run(program, pinned[0], config, device=dev)
+    profiles = {
+        "batch B=64 SG0": profile_request(
+            "pinned batch B=64 SG0",
+            lambda: run_batch(program, pinned, config, device=dev)),
+        "sequential SG0": profile_request(
+            "pinned sequential SG0",
+            lambda: run(program, pinned[0], config, device=dev))}
+    return dict(cells=cells, slices=roster, benchmark=bench,
+                pinned_profiles=profiles, pack_seconds=pack_s), \
+        launches, device_launches
+
+
+class _Clock:
+    """Seconds per phase of the run, logged as each phase ends."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.last
+        self.last = now
+        log(f"phase {phase}: {self.seconds[phase]:.1f} s "
+            f"({now - self.t0:.1f} s so far)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "results" / "torch" /
@@ -1129,6 +1514,7 @@ def main() -> int:
         log(last)
         return 0
 
+    clock = _Clock()
     # 3. kernels against their plain versions
     rows = kernel_phase(graph, dev, flush)
     rows += embag_rows(dev, flush)
@@ -1137,33 +1523,56 @@ def main() -> int:
     del flush
     free_device_memory()
 
+    clock.lap("3 kernels")
     # 4. the graph path, then the dispatch benchmark and the K sweep
     runs, launches, device_launches = main_path(graph, dev)
+    clock.lap("4 graph path")
     dispatch = dispatch_phase(graph, dev)
-    del graph
+    clock.lap("4b dispatch")
     from repro_torch.core import PLAN_CACHE
     PLAN_CACHE.clear()  # the captured graphs and their pools
     free_device_memory()
 
+    # 4c. the tuner, 4d. batched execution
+    tuned, tune_launches = autotune_phase(graph, dev)
+    clock.lap("4c autotune")
+    del graph
+    PLAN_CACHE.clear()
+    free_device_memory()
+    batched, batch_launches, batch_device = batch_phase(dev)
+    clock.lap("4d batch")
+    free_device_memory()
+
     # 5. DLRM serving
     dlrm, launches["embag"], k3_rows = dlrm_phase(dev)
+    clock.lap("5 dlrm")
     rows += k3_rows
     free_device_memory()
 
     # 6. the attention entry point
     attn, launches["flash_attention"] = attention_path(dev)
+    clock.lap("6 attention")
     free_device_memory()
     for row in rows:
         row["launches"] = launches[row["kernel"]]
         if row["kernel"] in device_launches:
             row["device_launches"] = device_launches[row["kernel"]]
+            # the later paths, each counted from 0 on its own
+            row["autotune_launches"] = tune_launches[row["kernel"]]
+            row["batch_launches"] = batch_launches[row["kernel"]]
+            row["batch_device_launches"] = batch_device[row["kernel"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
     out.write_text(json.dumps(dict(card=card, build_seconds=build_s,
                                    kernels=rows, runs=runs,
-                                   dispatch=dispatch, dlrm=dlrm,
-                                   attention=attn), indent=1))
+                                   dispatch=dispatch, autotune=tuned,
+                                   autotune_launches=tune_launches,
+                                   batch=batched,
+                                   batch_launches=batch_launches,
+                                   batch_device_launches=batch_device,
+                                   dlrm=dlrm, attention=attn,
+                                   phase_seconds=clock.seconds), indent=1))
     # 7. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))
     log(last)

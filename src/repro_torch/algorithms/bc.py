@@ -117,6 +117,8 @@ def bc(root: int = 0, max_iters: int = 4096) -> VertexProgram:
     return VertexProgram(
         name="BC", init=init, step=step, converged=converged,
         extract=extract, weighted=False, max_iters=max_iters,
+        # padding depth is no level and not unvisited (-1)
+        state_pad={"depth": -2},
         frontier_init=frontier_init,
         frontier_update=lambda st: st["depth"] == st["cur_level"],
     )

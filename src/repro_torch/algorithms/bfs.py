@@ -55,7 +55,7 @@ def bfs(source: int = 0, max_iters: int = 4096) -> VertexProgram:
                 FRONTIER_OCC_KEY: occ}
 
     def converged(prev, cur):
-        return ~cur["active"].any()
+        return ~cur["active"].any(-1)
 
     return VertexProgram(
         name="BFS", init=init, step=step, converged=converged,

@@ -49,7 +49,7 @@ def cc(max_iters: int = 512) -> VertexProgram:
                 FRONTIER_OCC_KEY: occ}
 
     def converged(prev, cur):
-        return (prev["label"] == cur["label"]).all()
+        return (prev["label"] == cur["label"]).all(-1)
 
     return VertexProgram(
         name="CC", init=init, step=step, converged=converged,

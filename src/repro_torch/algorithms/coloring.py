@@ -59,7 +59,7 @@ def coloring(max_iters: int = 512) -> VertexProgram:
                 FRONTIER_OCC_KEY: occ}
 
     def converged(prev, cur):
-        return (cur["color"] >= 0).all()
+        return (cur["color"] >= 0).all(-1)
 
     return VertexProgram(
         name="CLR", init=init, step=step, converged=converged,

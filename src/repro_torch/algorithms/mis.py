@@ -69,12 +69,14 @@ def mis(max_iters: int = 256) -> VertexProgram:
                 FRONTIER_OCC_KEY: occ}
 
     def converged(prev, cur):
-        return ~(cur["status"] == 0).any()
+        return ~(cur["status"] == 0).any(-1)
 
     return VertexProgram(
         name="MIS", init=init, step=step, converged=converged,
         extract=lambda st: st["status"] == 1, weighted=False,
         max_iters=max_iters,
+        # a padding row of undecided zeros would never converge
+        state_pad={"status": 2},
         frontier_init=lambda g: torch.ones(g.n_nodes, dtype=torch.bool),
         frontier_update=lambda st: st["status"] == 0,
     )

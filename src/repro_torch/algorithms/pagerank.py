@@ -59,7 +59,7 @@ def pagerank(damping: float = 0.85, tol: float = 1e-6,
                 FRONTIER_OCC_KEY: occ}
 
     def converged(prev, cur):
-        return (prev["rank"] - cur["rank"]).abs().sum() < tol
+        return (prev["rank"] - cur["rank"]).abs().sum(-1) < tol
 
     return VertexProgram(
         name="PR", init=init, step=step, converged=converged,

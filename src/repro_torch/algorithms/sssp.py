@@ -48,7 +48,7 @@ def sssp(source: int = 0, max_iters: int = 4096) -> VertexProgram:
                 FRONTIER_OCC_KEY: occ}
 
     def converged(prev, cur):
-        return ~cur["active"].any()
+        return ~cur["active"].any(-1)
 
     return VertexProgram(
         name="SSSP", init=init, step=step, converged=converged,

@@ -35,8 +35,17 @@ with *both* branches of every choice taken, so that every kernel is
 loaded and every library initialized outside the capture, and with
 synchronizing operations made to raise, so that a step that reads the
 device on the host fails there and not inside a capture.  The captured
-graph is cached per (program, context, limit) in ``PLAN_CACHE``
-("exec_fn", as ``executor.py:682-702``), so repeats skip the capture.
+graph is cached in ``PLAN_CACHE`` ("exec_fn", as
+``executor.py:682-702``), keyed on the program, the context's config,
+kernels, capacity and resolved plans (``plan_signature``), the device
+and the limit, so repeats skip the capture and a context with other
+plans never replays a graph recorded over another's reducers.
+
+The batched loops of :mod:`repro_torch.core.batch` reuse the same
+guarded step, warm-up and capture with buffers of their own
+(:class:`_FusedBatch`: ``[B]`` done flags and iteration counts,
+``[B, limit]`` traces; :class:`_FusedSlice`: a slice resumed from
+carried per-graph counters).
 
 On a CPU device the same guarded steps run eagerly,
 :data:`STEPS_PER_LAUNCH` per "launch", with the predicates read on the
@@ -66,7 +75,8 @@ from repro_torch.core.vertex_program import (DENSE_OCC, FRONTIER_DIR_KEY,
                                              FRONTIER_OCC_KEY, VertexProgram)
 from repro_torch.kernels._build import load
 
-__all__ = ["STEPS_PER_LAUNCH", "CudaGraph", "SOURCE", "run_fused"]
+__all__ = ["STEPS_PER_LAUNCH", "CudaGraph", "SOURCE", "run_fused",
+           "cached_engine", "drive", "build_batch", "build_slice"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "graph_if.cu"
 
@@ -320,11 +330,17 @@ class _Fused:
     graph: Any = None
 
     def copy(self) -> "_Fused":
-        clone = lambda t: None if t is None else t.clone()  # noqa: E731
-        return dataclasses.replace(
-            self, state={k: t.clone() for k, t in self.state.items()},
-            it=self.it.clone(), done=self.done.clone(),
-            dirs=clone(self.dirs), occs=clone(self.occs), graph=None)
+        """The buffers cloned, no graph: the warm-up's copy."""
+        def clone(v):
+            if isinstance(v, torch.Tensor):
+                return v.clone()
+            if isinstance(v, dict):
+                return {k: t.clone() for k, t in v.items()}
+            return v
+        return dataclasses.replace(self, graph=None, **{
+            f.name: clone(getattr(self, f.name))
+            for f in dataclasses.fields(self)
+            if f.name not in ("program", "ctx", "graph")})
 
     def reset(self, state: Dict[str, torch.Tensor]) -> None:
         """Load a run's initial state, ``it = 0``, ``done = False`` and
@@ -347,9 +363,9 @@ class _Fused:
         live = (self.it < self.limit) & ~self.done
         control.when(live, self._step)
 
-    def _step(self) -> None:
+    def _checked(self, new: Dict[str, torch.Tensor]) -> None:
+        """A step's output must match the state buffers exactly."""
         st = self.state
-        new = self.program.step(self.ctx, st, self.it)
         if set(new) != set(st):
             raise ValueError(f"{self.program.name}: step returned keys "
                              f"{sorted(new)}, the state has {sorted(st)}")
@@ -358,15 +374,29 @@ class _Fused:
                 raise TypeError(f"{self.program.name}: step returned {k!r} "
                                 f"as {tuple(t.shape)} {t.dtype}, the state "
                                 f"holds {tuple(st[k].shape)} {st[k].dtype}")
-        self.done.copy_(self.program.converged(st, new))
+
+    def _trace(self, new: Dict[str, torch.Tensor]) -> None:
+        """Write a step's trace scalars (``[B]`` columns when batched)
+        at column ``it`` of the trace buffers, a device index."""
         at = self.it.reshape(1).long()
-        if self.dirs is not None:
-            self.dirs.index_copy_(0, at, new[FRONTIER_DIR_KEY].reshape(1))
-        if self.occs is not None:
-            self.occs.index_copy_(0, at, new[FRONTIER_OCC_KEY].reshape(1))
-        for k, buf in st.items():
+        for buf, key in ((self.dirs, FRONTIER_DIR_KEY),
+                         (self.occs, FRONTIER_OCC_KEY)):
+            if buf is not None:
+                buf.index_copy_(buf.dim() - 1, at, new[key].reshape(
+                    tuple(buf.shape[:-1]) + (1,)))
+
+    def _commit(self, new: Dict[str, torch.Tensor]) -> None:
+        for k, buf in self.state.items():
             buf.copy_(new[k])
         self.it.add_(1)
+
+    def _step(self) -> None:
+        st = self.state
+        new = self.program.step(self.ctx, st, self.it)
+        self._checked(new)
+        self.done.copy_(self.program.converged(st, new))
+        self._trace(new)
+        self._commit(new)
 
     def launch(self) -> None:
         """One dispatch: a replay of the graph on the card, the same
@@ -382,6 +412,77 @@ class _Fused:
     def poll(self) -> bool:
         """The blocking read of ``done`` after a launch."""
         return bool(self.done)
+
+
+@dataclasses.dataclass(eq=False)
+class _FusedBatch(_Fused):
+    """:func:`~repro_torch.core.batch.run_fused_batch`'s buffers
+    (``batch.py:668-754``): ``done`` is ``[B]``, ``it_b`` the
+    per-graph iterations, the traces ``[B, limit]``; ``ctx`` is a
+    :class:`~repro_torch.core.batch.BatchedEdgeContext`."""
+    it_b: Optional[torch.Tensor] = None   # [B] int32
+
+    def reset(self, state: Dict[str, torch.Tensor]) -> None:
+        super().reset(state)
+        self.it_b.zero_()
+
+    def guarded_step(self, control) -> None:
+        live = (self.it < self.limit) & ~self.done.all()
+        control.when(live, self._step)
+
+    def _step(self) -> None:
+        st, ctx, done = self.state, self.ctx, self.done
+        new = self.program.step(ctx, st, self.it)
+        self._checked(new)
+        conv = ctx.converged_per_graph(self.program, st, new)
+        merged = ctx.freeze(done, st, new)
+        self.it_b.add_((~done).int())
+        self._trace(merged)
+        done.logical_or_(conv)
+        self._commit(merged)
+
+    def poll(self) -> bool:
+        return bool(self.done.all())
+
+
+@dataclasses.dataclass(eq=False)
+class _FusedSlice(_Fused):
+    """:func:`~repro_torch.core.batch.run_batch_slice`'s buffers
+    (``batch.py:777-874``): ``it`` counts the slice's steps s and
+    ``limit`` is ``slice_len``; ``done`` is ``[B]`` convergence in the
+    slice, ``it_b`` the carried per-graph counters, ``parked`` the
+    parked slots, ``limit_b`` each graph's own limit."""
+    it_b: Optional[torch.Tensor] = None      # [B] int32
+    parked: Optional[torch.Tensor] = None    # [B] bool
+    limit_b: Optional[torch.Tensor] = None   # [B] int32
+
+    def load(self, state, it_b, parked, limit_b) -> None:
+        self.reset(state)
+        self.it_b.copy_(it_b)
+        self.parked.copy_(parked)
+        self.limit_b.copy_(limit_b)
+
+    def _stopped(self) -> torch.Tensor:
+        return self.parked | self.done | (self.it_b >= self.limit_b)
+
+    def guarded_step(self, control) -> None:
+        live = (self.it < self.limit) & ~self._stopped().all()
+        control.when(live, self._step)
+
+    def _step(self) -> None:
+        st, ctx = self.state, self.ctx
+        frozen = self._stopped()
+        new = self.program.step(ctx, st, self.it_b)
+        self._checked(new)
+        conv = ctx.converged_per_graph(self.program, st, new)
+        merged = ctx.freeze(frozen, st, new)
+        self.it_b.add_((~frozen).int())
+        self.done.logical_or_(conv & ~frozen)
+        self._trace(merged)
+        self._commit(merged)
+
+    def poll(self) -> bool:
+        return bool(self._stopped().all())
 
 
 @contextlib.contextmanager
@@ -400,20 +501,56 @@ def _no_host_reads(device: torch.device):
         torch.cuda.set_sync_debug_mode(before)
 
 
-def _build(program: VertexProgram, ctx: EdgeContext, state, limit: int,
-           traced: bool, occ_traced: bool) -> _Fused:
-    """Static buffers, the warm-up with every branch taken, and on the
-    card the capture of :data:`STEPS_PER_LAUNCH` guarded steps."""
+def _buffers(ctx, state, limit: int, traced: bool, occ_traced: bool,
+             rows: tuple = ()) -> dict:
+    """A run's static buffers: the state, ``it``, ``done`` and the trace
+    buffers, with ``rows`` (``(B,)`` when batched) leading ``done`` and
+    the traces."""
     dev = ctx.device
-    ex = _Fused(
-        program=program, ctx=ctx, limit=limit, steps=STEPS_PER_LAUNCH,
+    return dict(
         state={k: t.clone() for k, t in state.items()},
         it=torch.zeros((), dtype=torch.int32, device=dev),
-        done=torch.zeros((), dtype=torch.bool, device=dev),
-        dirs=(torch.zeros(limit, dtype=torch.bool, device=dev)
+        done=torch.zeros(rows, dtype=torch.bool, device=dev),
+        dirs=(torch.zeros(rows + (limit,), dtype=torch.bool, device=dev)
               if traced else None),
-        occs=(torch.full((limit,), DENSE_OCC, dtype=torch.float32,
+        occs=(torch.full(rows + (limit,), DENSE_OCC, dtype=torch.float32,
                          device=dev) if occ_traced else None))
+
+
+def _build(program: VertexProgram, ctx: EdgeContext, state, limit: int,
+           traced: bool, occ_traced: bool) -> _Fused:
+    return _capture(_Fused(program=program, ctx=ctx, limit=limit,
+                           steps=STEPS_PER_LAUNCH,
+                           **_buffers(ctx, state, limit, traced,
+                                      occ_traced)))
+
+
+def build_batch(program: VertexProgram, bctx, state, limit: int,
+                traced: bool, occ_traced: bool) -> _FusedBatch:
+    """The batched run's buffers and graph (see :func:`_capture`)."""
+    return _capture(_FusedBatch(
+        program=program, ctx=bctx, limit=limit, steps=STEPS_PER_LAUNCH,
+        it_b=torch.zeros(bctx.B, dtype=torch.int32, device=bctx.device),
+        **_buffers(bctx, state, limit, traced, occ_traced, (bctx.B,))))
+
+
+def build_slice(program: VertexProgram, bctx, state, slice_len: int,
+                traced: bool, occ_traced: bool) -> _FusedSlice:
+    """A slice's buffers and graph (see :func:`_capture`)."""
+    dev, b = bctx.device, bctx.B
+    return _capture(_FusedSlice(
+        program=program, ctx=bctx, limit=slice_len, steps=STEPS_PER_LAUNCH,
+        it_b=torch.zeros(b, dtype=torch.int32, device=dev),
+        parked=torch.zeros(b, dtype=torch.bool, device=dev),
+        limit_b=torch.zeros(b, dtype=torch.int32, device=dev),
+        **_buffers(bctx, state, slice_len, traced, occ_traced, (b,))))
+
+
+def _capture(ex: _Fused) -> _Fused:
+    """The warm-up with every branch taken, then on the card the capture
+    of :data:`STEPS_PER_LAUNCH` guarded steps over ``ex``'s buffers."""
+    ctx = ex.ctx
+    dev = ctx.device
     warm, control = ex.copy(), _Warm()
     with _controlled(ctx, control), _no_host_reads(dev):
         warm.guarded_step(control)
@@ -430,33 +567,51 @@ def _build(program: VertexProgram, ctx: EdgeContext, state, limit: int,
     return ex
 
 
-def run_fused(program: VertexProgram, ctx: EdgeContext, state,
-              limit: int) -> RunResult:
-    """Drive ``program`` to convergence with the fused engine.  The
-    timed region holds the launches and their polls; decoding ``it`` and
-    the traces comes after the timer stops."""
-    traced, occ_traced = _trace_flags(program, state)
-
-    def build():
-        return program, _build(program, ctx, state, limit, traced,
-                               occ_traced)
-
+def cached_engine(program: VertexProgram, ctx: EdgeContext, params: tuple,
+                  build) -> _Fused:
+    """``build()``'s engine, cached under ``"exec_fn"`` on ``ctx``'s
+    graph (``executor.py:682-702``).  The key names the program, the
+    context's config, kernels, capacity, resolved plans
+    (``plan_signature``) and device, ``params`` and
+    :data:`STEPS_PER_LAUNCH`; the entry holds the program, so that its
+    id cannot be recycled while the entry lives."""
     key = (id(program), ctx.config, ctx.use_kernels,
-           ctx.sparse_edge_capacity, str(ctx.device), limit, traced,
-           occ_traced, STEPS_PER_LAUNCH)
+           ctx.sparse_edge_capacity, ctx.plan_signature,
+           str(ctx.device)) + params + (STEPS_PER_LAUNCH,)
     g = ctx.graph
-    ex = build()[1] if g is None else PLAN_CACHE.get(
-        g, "exec_fn", key, build, capacity=EXEC_FN_CAPACITY)[1]
-    ex.reset(state)
-    _synchronize(ctx.device)
+    if g is None:
+        return build()
+    return PLAN_CACHE.get(g, "exec_fn", key, lambda: (program, build()),
+                          capacity=EXEC_FN_CAPACITY)[1]
+
+
+def drive(ex: _Fused, limit: int) -> tuple:
+    """The timed loop: launch and poll until the run is done or the
+    launches have covered ``limit`` steps.  Returns ``(launches, done,
+    seconds)``."""
+    dev = ex.ctx.device
+    _synchronize(dev)
     t0 = time.perf_counter()
     launches, done = 0, False
     while not done and launches * ex.steps < limit:
         ex.launch()
         launches += 1
         done = ex.poll()
-    _synchronize(ctx.device)
-    dt = time.perf_counter() - t0
+    _synchronize(dev)
+    return launches, done, time.perf_counter() - t0
+
+
+def run_fused(program: VertexProgram, ctx: EdgeContext, state,
+              limit: int) -> RunResult:
+    """Drive ``program`` to convergence with the fused engine.  The
+    timed region holds the launches and their polls; decoding ``it`` and
+    the traces comes after the timer stops."""
+    traced, occ_traced = _trace_flags(program, state)
+    ex = cached_engine(program, ctx, (limit, traced, occ_traced),
+                       lambda: _build(program, ctx, state, limit, traced,
+                                      occ_traced))
+    ex.reset(state)
+    launches, done, dt = drive(ex, limit)
     ctx.host_syncs += launches
     it = int(ex.it)
     trace, occ_trace = _decode_traces(

@@ -55,22 +55,22 @@ from repro_torch.core.vertex_program import (FRONTIER_DIR_KEY,
                                              VertexProgram, dense_occupancy)
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import Graph
-from repro_torch.kernels.autotune import build_reducer
+from repro_torch.kernels.autotune import autotune_plan, build_reducer
 from repro_torch.kernels.segment_reduce import (DEFAULT_PLAN,
                                                 gathered_segment_reduce)
 
-__all__ = ["EdgeContext", "RunResult", "run", "resolve_device"]
+__all__ = ["EdgeContext", "RunResult", "run", "run_batch", "resolve_device"]
 
 
-def _check_autotune(autotune) -> None:
-    """Accept the ``autotune=`` values that mean "off"; the reference's
-    other modes are not ported yet."""
+def _normalize_autotune(autotune) -> str:
+    """The ``autotune=`` knob as "off", "heuristic" or "measure"
+    (``executor.py:118-127``)."""
     if autotune in (None, False, "off"):
-        return
-    if autotune in (True, "heuristic", "measure"):
-        raise NotImplementedError(
-            "autotune: the tiling-plan tuner is not ported yet "
-            "(ROADMAP.md, queue 1, item 4); use autotune='off'")
+        return "off"
+    if autotune is True:
+        return "measure"
+    if autotune in ("heuristic", "measure"):
+        return autotune
     raise ValueError(f"unknown autotune mode {autotune!r}; expected "
                      "'off', 'heuristic', 'measure' or a bool")
 
@@ -110,8 +110,8 @@ class EdgeContext:
                sparse_edge_capacity: Optional[int] = None,
                autotune=None, device=None) -> "EdgeContext":
         """Cached constructor: reuse the bound context of a repeated
-        (graph, config, use_kernels, capacity, device) cell."""
-        _check_autotune(autotune)
+        (graph, config, use_kernels, capacity, autotune, device) cell."""
+        mode = _normalize_autotune(autotune)
         device = resolve_device(device)
         if sparse_edge_capacity is None:
             sparse_edge_capacity = cls.default_sparse_capacity(graph)
@@ -119,7 +119,8 @@ class EdgeContext:
 
         def build():
             ctx = cls(graph, config, use_kernels=use_kernels,
-                      sparse_edge_capacity=cap, device=device)
+                      sparse_edge_capacity=cap, autotune=mode,
+                      device=device)
             # a cache-owned context must not pin its graph, or the
             # cache's eviction on collection could never fire
             ctx._graph_strong = None
@@ -127,13 +128,13 @@ class EdgeContext:
 
         return PLAN_CACHE.get(
             graph, "context",
-            (config, bool(use_kernels), cap, str(device)), build)
+            (config, bool(use_kernels), cap, mode, str(device)), build)
 
     def __init__(self, graph: Graph, config: SystemConfig,
                  use_kernels: bool = False,
                  sparse_edge_capacity: Optional[int] = None,
                  autotune=None, device=None):
-        _check_autotune(autotune)
+        self.autotune = _normalize_autotune(autotune)
         self.device = resolve_device(device)
         dev = str(self.device)
         self._graph_strong: Optional[Graph] = graph
@@ -194,7 +195,8 @@ class EdgeContext:
         self._gather_plan = None
         if (config.prop is UpdateProp.PUSH_PULL
                 and self.sparse_edge_capacity > 0):
-            self._gather_plan = DEFAULT_PLAN
+            self._gather_plan = self._resolve_plan(
+                graph, "gathered", self.sparse_edge_capacity)
         if config.coherence is Coherence.DENOVO:
             owned = cache.get(graph, "edges_owned", (dev,), g.edges_owned)
             self._push_edges = cache.get(graph, "chunked",
@@ -203,9 +205,10 @@ class EdgeContext:
             if use_kernels and config.prop is not UpdateProp.PULL:
                 self._owned_raw = cache.get(graph, "raw", ("owned", dev),
                                             lambda: raw(owned))
+                plan = self._resolve_plan(graph, "owned")
                 self._reducer = cache.get(
-                    graph, "owned_reducer", (DEFAULT_PLAN, dev),
-                    lambda: build_reducer(graph, "owned", DEFAULT_PLAN,
+                    graph, "owned_reducer", (plan, dev),
+                    lambda: build_reducer(graph, "owned", plan,
                                           device=self.device))
         else:
             self._push_edges = cache.get(
@@ -218,11 +221,37 @@ class EdgeContext:
             self._pull_raw = cache.get(
                 graph, "raw", ("csc", dev),
                 lambda: raw((g.src_in, g.dst_in, g.weight_in)))
+            plan = self._resolve_plan(graph, "pull")
             self._pull_reducer = cache.get(
-                graph, "pull_reducer", (DEFAULT_PLAN, dev),
-                lambda: build_reducer(graph, "pull", DEFAULT_PLAN,
+                graph, "pull_reducer", (plan, dev),
+                lambda: build_reducer(graph, "pull", plan,
                                       device=self.device))
         self.n_chunks = n_chunks
+
+    def _resolve_plan(self, graph: Graph, order: str,
+                      cap_e: Optional[int] = None):
+        """This context's tiling plan for one edge order
+        (``executor.py:286-296``): the default when autotune is off, and
+        for the gathered order under "heuristic" (the degree model has
+        no view of the scatter split); else the tuner's."""
+        if self.autotune == "off":
+            return DEFAULT_PLAN
+        if order == "gathered" and self.autotune == "heuristic":
+            return DEFAULT_PLAN
+        return autotune_plan(graph, order=order, kind="mixed",
+                             mode=self.autotune, cap_e=cap_e,
+                             device=self.device)
+
+    @property
+    def plan_signature(self) -> tuple:
+        """The resolved tiling plans (``executor.py:298-307``): part of
+        the fused engine's key, so that two contexts that differ only in
+        their plans never share a captured graph."""
+        def sig(red):
+            return red.plan.astuple() if red is not None else None
+        return (sig(self._reducer), sig(self._pull_reducer),
+                self._gather_plan.astuple()
+                if self._gather_plan is not None else None)
 
     @property
     def graph(self) -> Optional[Graph]:
@@ -569,9 +598,14 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
     ``done`` per replay (:mod:`repro_torch.core.capture`; on a CPU
     device the same guarded steps run eagerly); "host" is the
     step-per-iteration oracle it is tested against.  Both give the same
-    states, iteration counts and traces.  ``autotune`` accepts only
-    "off".  The reference's resilience, batching and specialization
-    knobs are not accepted yet.
+    states, iteration counts and traces.  ``autotune`` picks the blocked
+    reducers' plans: "off" (or None, False) the default plan,
+    "heuristic" one from the graph's degree features, "measure" (or
+    True) the fastest of a timed sweep (:mod:`repro_torch.kernels.autotune`;
+    on the card CUDA events, and a disk cache under
+    ``results/torch/``).  Plans change times, never results.  The
+    reference's resilience and specialization knobs are not accepted
+    yet; many graphs at once go through :func:`run_batch`.
     """
     if engine not in ("fused", "host"):
         raise ValueError(f"unknown engine {engine!r}; "
@@ -591,3 +625,69 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
         res = _run_host(program, ctx, state, limit)
     res.config_name = config.name
     return res
+
+
+def run_batch(program: VertexProgram, graphs, config: SystemConfig,
+              keys: Optional[list] = None, max_iters: Optional[int] = None,
+              use_kernels: bool = False,
+              sparse_edge_capacity: Optional[int] = None, autotune=None,
+              max_batch: Optional[int] = None,
+              device=None) -> List[RunResult]:
+    """Run ``program`` on many graphs as block-diagonal packed batches
+    (``executor.py:921-1000``; the reference's ``specialize`` is not
+    ported).
+
+    Graphs are grouped by padding bucket
+    (:func:`~repro_torch.core.batch.bucket_key`); each group, cut into
+    parts of at most ``max_batch`` graphs, is packed once (cached per
+    tuple of graphs) and driven to convergence by
+    :func:`~repro_torch.core.batch.run_fused_batch`.  Results come back
+    in input order with ``engine="batched"``; states, iteration counts
+    and traces equal each graph's sequential :func:`run` for min/max
+    and integer-sum programs, and agree to float tolerance for PR and
+    BC.  ``seconds`` is the batch's wall time over its size and
+    ``dispatches`` its launches.
+
+    ``keys`` gives one ``torch.Generator`` per graph for programs with
+    random init.  Without them each graph draws from its own default
+    generator (``algorithms/_random.py:graph_key``), so a batched run
+    equals that graph's sequential ``run``; the reference folds the
+    batch index into one key instead, which ``jax.random`` alone can
+    reproduce.  ``sparse_edge_capacity`` is per graph (0 disables the
+    gathered path batch-wide); the other knobs mean what they mean on
+    :func:`run`, and ``device`` defaults to CUDA.
+    """
+    from repro_torch.core.batch import (BatchedEdgeContext, bucket_key,
+                                        get_graph_batch, run_fused_batch)
+    graphs = list(graphs)
+    if keys is not None and len(keys) != len(graphs):
+        raise ValueError(f"{len(keys)} keys for {len(graphs)} graphs")
+    if max_batch is not None and max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    device = resolve_device(device)
+    limit = max_iters or program.max_iters
+    groups: dict = {}
+    for i, g in enumerate(graphs):
+        groups.setdefault(bucket_key(g), []).append(i)
+    results: List[Optional[RunResult]] = [None] * len(graphs)
+    for idxs in groups.values():
+        step = max_batch or len(idxs)
+        for lo in range(0, len(idxs), step):
+            part = idxs[lo:lo + step]
+            batch = get_graph_batch(tuple(graphs[i] for i in part))
+            bctx = BatchedEdgeContext.create(
+                batch, config, use_kernels=use_kernels,
+                sparse_edge_capacity=sparse_edge_capacity,
+                autotune=autotune, device=device)
+            states = [program.init(graphs[i]) if keys is None
+                      else program.init(graphs[i], keys[i]) for i in part]
+            packed = batch.pack_state_host(
+                [{k: torch.as_tensor(t).numpy() for k, t in s.items()}
+                 for s in states], pad=program.state_pad)
+            packed = {k: torch.from_numpy(v).to(device)
+                      for k, v in packed.items()}
+            for i, r in zip(part, run_fused_batch(program, batch, bctx,
+                                                  packed, limit)):
+                r.config_name = config.name
+                results[i] = r
+    return results

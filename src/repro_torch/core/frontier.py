@@ -22,8 +22,9 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = ["ALPHA", "BETA", "frontier_size", "frontier_edges",
-           "choose_direction", "SparseFrontier", "FrontierEdges",
-           "dense_to_sparse", "gather_frontier_edges"]
+           "choose_direction", "choose_direction_batch", "SparseFrontier",
+           "FrontierEdges", "dense_to_sparse", "sparse_to_dense",
+           "gather_frontier_edges"]
 
 #: push->pull trigger: pull once frontier out-edges exceed unexplored/ALPHA.
 ALPHA = 14.0
@@ -60,6 +61,33 @@ def choose_direction(mask: torch.Tensor, out_degree: torch.Tensor,
         to_pull = m_f * alpha > n_edges
     else:
         m_u = frontier_edges(unvisited, out_degree)
+        to_pull = m_f * alpha > m_u
+    to_push = n_f * beta < n_nodes
+    return torch.where(prev_pull, ~to_push, to_pull)
+
+
+def choose_direction_batch(mask: torch.Tensor, out_degree: torch.Tensor,
+                           n_edges: torch.Tensor, n_nodes: torch.Tensor,
+                           prev_pull, unvisited: Optional[torch.Tensor] = None,
+                           alpha: float = ALPHA,
+                           beta: float = BETA) -> torch.Tensor:
+    """Row-wise :func:`choose_direction` over packed graphs
+    (``frontier.py:99-130``): ``[B]`` bools (True = pull).
+
+    ``mask``, ``out_degree`` and ``unvisited`` are ``[B, n_q]`` rows
+    (padding columns False in the masks); ``n_edges`` and ``n_nodes``
+    the ``[B]`` true sizes as int32; ``prev_pull`` the ``[B]``
+    hysteresis.  Each row's statistics are the same int32 sums as the
+    scalar rule's and compare in float32 the same way, so every row
+    equals :func:`choose_direction` on its own graph bit for bit.
+    """
+    deg = out_degree.int()
+    m_f = torch.where(mask, deg, 0).sum(dim=1, dtype=torch.int32)
+    n_f = mask.sum(dim=1, dtype=torch.int32)
+    if unvisited is None:
+        to_pull = m_f * alpha > n_edges
+    else:
+        m_u = torch.where(unvisited, deg, 0).sum(dim=1, dtype=torch.int32)
         to_pull = m_f * alpha > m_u
     to_push = n_f * beta < n_nodes
     return torch.where(prev_pull, ~to_push, to_pull)
@@ -115,6 +143,14 @@ def dense_to_sparse(mask: torch.Tensor, capacity: int) -> SparseFrontier:
     ids.scatter_(0, slot, torch.arange(v, dtype=torch.int32,
                                        device=mask.device))
     return SparseFrontier(ids=ids[:capacity], count=frontier_size(mask))
+
+
+def sparse_to_dense(ids: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Padded vertex-id list (-1 padding) -> dense ``[n_nodes]`` bool
+    mask (``frontier.py:181-185``)."""
+    mask = torch.zeros(n_nodes + 1, dtype=torch.bool, device=ids.device)
+    mask[torch.where(ids < 0, n_nodes, ids).long()] = True
+    return mask[:n_nodes]
 
 
 def gather_frontier_edges(ids: torch.Tensor, row_ptr: torch.Tensor,

@@ -10,6 +10,14 @@ Entries are keyed on graph identity (``id(graph)``, guarded by a
 ``weakref.finalize`` hook that evicts a collected graph's entries) plus
 an artifact kind and its build parameters; the device is part of the
 parameters of every device artifact.
+
+The batched path adds two kinds: ``"batch_pack"`` (a block-diagonal
+:class:`~repro_torch.core.batch.GraphBatch`, anchored on the batch's
+first member and keyed on the member identities; the batch holds its
+first member weakly and the others strongly, so that no member's id can
+be recycled while the entry lives) and ``"batch_context"`` (a bound
+:class:`~repro_torch.core.batch.BatchedEdgeContext`, anchored on the
+packed graph).  The tuner adds ``"tuned_tiling"``.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ class PlanCache:
         self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
+        #: per-kind counters, kind -> [hits, misses]
+        self._by_kind: Dict[str, list] = {}
 
     def get(self, graph: Any, kind: str, params: Hashable,
             build: Callable[[], Any], capacity: int | None = None) -> Any:
@@ -47,13 +57,16 @@ class PlanCache:
         key = (id(graph), kind, params)
         with self._lock:
             self._prune()
+            counters = self._by_kind.setdefault(kind, [0, 0])
             if key in self._store:
                 self.hits += 1
+                counters[0] += 1
                 # dict order is the recency order
                 value = self._store.pop(key)
                 self._store[key] = value
                 return value
             self.misses += 1
+            counters[1] += 1
             self._watch(graph)
         # build outside the lock: builders recurse into the cache
         value = build()
@@ -81,7 +94,7 @@ class PlanCache:
                 del self._store[key]
 
     def clear(self) -> None:
-        """Drop every entry and reset the counters."""
+        """Drop every entry and reset the counters, per kind too."""
         with self._lock:
             for fin in self._finalizers.values():
                 fin.detach()
@@ -90,6 +103,30 @@ class PlanCache:
             self._dead.clear()
             self.hits = 0
             self.misses = 0
+            self._by_kind.clear()
+
+    def stats(self) -> Dict[str, Any]:
+        """Global counters and, under ``by_kind``, each kind's
+        ``{hits, misses, entries}`` (``plan_cache.py:153-177``)."""
+        with self._lock:
+            self._prune()
+            entries: Dict[str, int] = {}
+            for _, kind, _ in self._store:
+                entries[kind] = entries.get(kind, 0) + 1
+            by_kind = {kind: {"hits": hm[0], "misses": hm[1],
+                              "entries": entries.get(kind, 0)}
+                       for kind, hm in self._by_kind.items()}
+            for kind, n in entries.items():
+                by_kind.setdefault(kind, {"hits": 0, "misses": 0,
+                                          "entries": n})
+            return {"entries": len(self._store), "hits": self.hits,
+                    "misses": self.misses, "by_kind": by_kind}
+
+    def kind_stats(self, kind: str) -> Dict[str, int]:
+        """One kind's ``{hits, misses, entries}``; zeros for a kind never
+        touched."""
+        return self.stats()["by_kind"].get(
+            kind, {"hits": 0, "misses": 0, "entries": 0})
 
     def kinds(self) -> Dict[str, int]:
         """Entry count per artifact kind."""

@@ -93,6 +93,13 @@ class VertexProgram:
     ``converged(prev, cur)`` a bool scalar tensor.
     Frontier-aware programs set ``frontier_update`` and record their
     per-iteration direction under :data:`FRONTIER_DIR_KEY`.
+
+    Batching protocol (:mod:`repro_torch.core.batch`): ``converged``
+    reduces over the last axis only, so that on ``[B, n_q]`` row views
+    of a packed state it gives each graph's verdict as a ``[B]`` bool
+    (no ``vmap``); ``step`` takes ``it`` as a scalar or as ``[B]``
+    per-graph counters.  ``state_pad`` maps a state key to the fill of
+    its padding rows where 0 is not inert (MIS: status 2, "removed").
     """
     name: str
     init: Callable[..., State]                         # (graph, key)
@@ -103,6 +110,7 @@ class VertexProgram:
     max_iters: int = 1024
     frontier_init: Optional[Callable[..., torch.Tensor]] = None  # (graph)
     frontier_update: Optional[Callable[[State], torch.Tensor]] = None
+    state_pad: Optional[dict] = None  # key -> padding fill value
 
     @property
     def properties(self) -> AlgorithmicProperties:

@@ -11,7 +11,8 @@ import numpy as np
 
 from repro_torch.graph.structure import Graph
 
-__all__ = ["regular_graph", "powerlaw_graph", "random_graph", "rmat_graph"]
+__all__ = ["regular_graph", "powerlaw_graph", "random_graph", "rmat_graph",
+           "rmat_batch"]
 
 
 def _finish(src, dst, n, rng, weighted, block_size):
@@ -103,3 +104,19 @@ def rmat_graph(scale: int, edge_factor: int = 8,
         src = (src << 1) | src_bit
         dst = (dst << 1) | dst_bit
     return _finish(src, dst, n, rng, weighted, block_size)
+
+
+def rmat_batch(count: int, scale: int, edge_factor: int = 8,
+               seed: int = 0, scale_spread: int = 0,
+               weighted: bool = False, block_size: int = 256) -> list:
+    """``count`` independent R-MAT graphs with per-graph seeds
+    ``seed + 1000 + i`` (``generators.py:153-173``): the serving batch
+    workload of ``run_batch``.  ``scale_spread > 0`` draws each graph's
+    scale from ``[scale, scale + scale_spread]``, which makes ragged
+    batches over several padding buckets."""
+    rng = np.random.default_rng(seed)
+    scales = (scale + rng.integers(0, scale_spread + 1, size=count)
+              if scale_spread else np.full(count, scale, np.int64))
+    return [rmat_graph(int(s), edge_factor, seed=seed + 1000 + i,
+                       weighted=weighted, block_size=block_size)
+            for i, s in enumerate(scales)]

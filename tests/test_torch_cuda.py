@@ -697,3 +697,168 @@ def test_flash_attention_bf16_refuses_a_misaligned_view(cuda_device):
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(shifted, k, v)
     assert flash_attention.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# the tuner's plans and the batched engine
+@pytest.fixture(scope="module")
+def tune_graph():
+    return powerlaw_graph(20000, 160000, alpha=1.2, seed=9, weighted=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [128, 256, 1024])
+@pytest.mark.parametrize("order,shape,d", [
+    ("owned", (1, 1), 1), ("owned", (1, 1), 8), ("owned", (4, 1), 1),
+    ("owned", (4, 1), 8), ("owned", (8, 1), 1), ("pull", (1, 2), 1),
+    ("pull", (1, 2), 8), ("pull", (1, 4), 1), ("pull", (1, 4), 8),
+    ("pull", (2, 1), 8)])
+def test_kernels_under_tuned_plans_match_plain_on_the_card(
+        cuda_device, tune_graph, threads, order, shape, d):
+    """Thread counts other than 512, coarsened owned blocks (chunks that
+    cross a base block) and refined pull blocks (thousands of one-chunk
+    blocks) against the plain versions on the same plan, at every width
+    whose accumulator fits the shared memory (2,048 vertices: D = 1)."""
+    from repro_torch.kernels.autotune import build_reducer
+    from repro_torch.kernels.segment_reduce import TilingPlan
+    mult, div = shape
+    plan = TilingPlan(tile_e=threads, block_mult=mult, block_div=div)
+    red = build_reducer(tune_graph, order, plan, device=cuda_device)
+    assert red.tile_e == threads
+    assert red.block_size == plan.block_size(tune_graph.block_size)
+    rng = np.random.default_rng(threads + d)
+    e = tune_graph.n_edges
+    kw = dict(block_size=red.block_size, num_segments=red.num_segments,
+              tile_e=threads, chunks=red.chunks)
+    args = (red.segment_ids, red.block_ptr)
+    for case in CASES:
+        vals = torch.from_numpy(_values_for(rng, case, e, d)).to(cuda_device)
+        if case.endswith("sum"):
+            got = seg_sum(vals, *args, **kw)
+            want = seg_sum_plain(vals, *args, **kw)
+        else:
+            is_min = case.endswith("min")
+            got = seg_minmax(vals, *args, is_min=is_min, **kw)
+            want = seg_minmax_plain(vals, *args, is_min=is_min, **kw)
+        torch.cuda.synchronize()
+        if case == "isum":
+            assert torch.equal(got, want)
+        else:
+            _assert_match(case, got, want)
+
+
+@pytest.mark.cuda
+def test_measure_plan_times_with_cuda_events(cuda_device, tune_graph):
+    from repro_torch.kernels import autotune as at
+    for order in ("owned", "pull", "gathered"):
+        plan = at.candidate_plans(tune_graph, order=order)[-1]
+        s = at.measure_plan(tune_graph, plan, order=order, repeats=2,
+                            device=cuda_device)
+        assert 0.0 < s < 1.0
+    plan = at.autotune_plan(tune_graph, order="pull", cache_path=None,
+                            device=cuda_device)
+    assert plan.tile_e in at.THREADS
+
+
+@pytest.mark.cuda
+def test_a_tuned_and_an_untuned_run_capture_two_graphs_on_the_card(
+        cuda_device, engine_graph):
+    """The capture key holds the resolved plans: the heuristic run gets
+    its own captured graph, over its own reducers, and the same result."""
+    program, config = bfs(), SystemConfig.from_name("TD0")
+    PLAN_CACHE.clear()
+    base = run(program, engine_graph, config, use_kernels=True,
+               device=cuda_device)
+    assert PLAN_CACHE.kind_stats("exec_fn")["entries"] == 1
+    tuned = run(program, engine_graph, config, use_kernels=True,
+                autotune="heuristic", device=cuda_device)
+    assert PLAN_CACHE.kind_stats("exec_fn")["entries"] == 2
+    assert tuned.iterations == base.iterations
+    assert tuned.direction_trace == base.direction_trace
+    assert torch.equal(tuned.state["depth"], base.state["depth"])
+
+
+def _batch_graphs():
+    from repro_torch.graph import rmat_batch
+    return rmat_batch(6, 8, seed=3, weighted=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ["SD1", "TG0", "DD1"])
+@pytest.mark.parametrize("app", ["BFS", "CC", "SSSP"])
+def test_fused_batch_equals_the_eager_cpu_batch(cuda_device, app, cfg):
+    from repro_torch.core import run_batch
+    graphs = _batch_graphs()
+    program, config = REGISTRY[app](), SystemConfig.from_name(cfg)
+    gpu = run_batch(program, graphs, config, use_kernels=True,
+                    device=cuda_device)
+    cpu = run_batch(program, graphs, config, use_kernels=True, device="cpu")
+    k = capture.STEPS_PER_LAUNCH
+    longest = max(r.iterations for r in cpu)
+    for g, c in zip(gpu, cpu):
+        assert g.engine == "batched" and g.converged
+        assert g.dispatches == -(-longest // k)
+        assert g.iterations == c.iterations
+        assert g.direction_trace == c.direction_trace
+        assert g.occupancy_trace == c.occupancy_trace
+        for key, want in c.state.items():
+            assert torch.equal(g.state[key].cpu(), want), (app, key)
+
+
+@pytest.mark.cuda
+def test_batched_replays_make_no_hidden_sync(cuda_device, monkeypatch):
+    """Every replay of a batched graph (BC under DD1: its phase select
+    and the inner context's IF nodes) runs under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch.core import run_batch
+    launch = capture._Fused.launch
+
+    def strict(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(capture._Fused, "launch", strict)
+    graphs = _batch_graphs()
+    program, config = REGISTRY["BC"](), SystemConfig.from_name("DD1")
+    run_batch(program, graphs, config, use_kernels=True, device=cuda_device)
+    res = run_batch(program, graphs, config, use_kernels=True,
+                    device=cuda_device)
+    cpu = run_batch(program, graphs, config, use_kernels=True, device="cpu")
+    for r, c in zip(res, cpu):
+        assert r.converged and r.host_syncs == r.dispatches
+        assert r.iterations == c.iterations
+        torch.testing.assert_close(r.state["delta"].cpu(), c.state["delta"],
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_batch_slices_on_the_card_equal_the_cpu(cuda_device):
+    from repro_torch.core import (BatchedEdgeContext, pack_graphs,
+                                  run_batch_slice)
+    graphs = _batch_graphs()[:3]
+    program, config = REGISTRY["CLR"](), SystemConfig.from_name("DD1")
+    batch = pack_graphs(graphs)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        bctx = BatchedEdgeContext(batch, config, use_kernels=True,
+                                  device=dev)
+        state = {k: v.to(dev) for k, v in batch.pack_state(
+            [program.init(g) for g in graphs], pad=program.state_pad).items()}
+        it_b, conv = np.zeros(3, np.int32), np.zeros(3, bool)
+        parked = np.array([False, True, False])
+        cols = []
+        for _ in range(64):
+            s = run_batch_slice(program, batch, bctx, state, it_b,
+                                parked | conv, np.full(3, 512, np.int32), 4)
+            cols.append(s.dir_cols)
+            state, it_b, conv = s.state, s.it_b, conv | s.converged_b
+            if (conv | parked).all():
+                break
+        out[dev.type] = (state, it_b, conv, np.concatenate(cols, 1))
+    (gs, gi, gc, gd), (cs, ci, cc, cd) = out["cuda"], out["cpu"]
+    assert (gi == ci).all() and (gc == cc).all() and (gd == cd).all()
+    for key, want in cs.items():
+        assert torch.equal(gs[key].cpu(), want), key

@@ -108,7 +108,7 @@ def test_iteration_limit_reports_not_converged(graphs):
     assert res.outcome == "iter_limit" and res.config_name == "TG0"
 
 
-def test_knobs_not_ported_yet_raise(graphs):
+def test_knobs_not_ported_yet_raise(graphs, monkeypatch, tmp_path):
     _, g = graphs
     cfg = SystemConfig.from_name("SD1")
     # the fused engine is the default now, and ``key`` is accepted
@@ -118,8 +118,15 @@ def test_knobs_not_ported_yet_raise(graphs):
     assert run(bfs(), g, cfg, device="cpu").engine == "fused"
     with pytest.raises(ValueError, match="engine"):
         run(bfs(), g, cfg, device="cpu", engine="jit")
-    with pytest.raises(NotImplementedError, match="autotune"):
-        run(bfs(), g, cfg, device="cpu", autotune="measure")
+    # the tuner is ported: every mode runs, with the same result
+    import repro_torch.kernels.autotune as at
+    monkeypatch.setattr(at, "DEFAULT_CACHE_PATH", str(tmp_path / "c.json"))
+    base = run(bfs(), g, cfg, device="cpu", use_kernels=True)
+    for mode in ("measure", "heuristic", True):
+        tuned = run(bfs(), g, cfg, device="cpu", use_kernels=True,
+                    autotune=mode)
+        assert tuned.converged and torch.equal(tuned.state["depth"],
+                                               base.state["depth"])
     with pytest.raises(ValueError, match="autotune"):
         run(bfs(), g, cfg, device="cpu", autotune="sometimes")
     for knob in ("checkpoint_every", "retry", "specialize"):
