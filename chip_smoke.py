@@ -98,6 +98,29 @@ script exits non-zero:
    Then ``repro_torch.benchmarks.batch`` at its pinned workload (R-MAT
    scale 6, BFS, B in 1, 4, 16, 64, 18 configs, best of 5; writes
    ``results/torch/BENCH_batch.json``).
+4e. resilience: with the K1/K2 counts set to 0, on the AMZ stand-in with
+   the kernels: every graph cell of phase 4 under the plain fused engine
+   and with ``checkpoint_every=32`` and the full sentinel battery (1
+   untimed + 3 timed runs each): the checkpointed run must equal the
+   plain one (exact apps bit for bit, state, iterations and traces; PR
+   and BC to phase 4's tolerances) with ``outcome == "converged"``, no
+   fault, ``engine == "fused"`` and one attempt; per cell its seconds
+   against plain, segments, replays, host reads, and per boundary the
+   host ms, the bytes read and the device ms of the sentinels, the
+   certificate and the snapshot copies.  PR TG0 and CLR SD1 also at
+   ``checkpoint_every=8``.  Seeded faults under ``RetryPolicy(6)``: nan
+   on PR TG0 late in the run, stale on SSSP SD1 at the converged
+   boundary (the certificate must catch it), bitflip on CC DD1,
+   exception and overflow on BFS DD1, compile on BFS SD1 (must end on
+   the host engine): each ends equal to the clean answer or
+   ``faulted``, never wrong.  Kill -> resume on CLR SD1 through
+   ``checkpoint_dir`` under ``build/`` with ``ProcessKillFault(
+   point="after_segment")``: bit-identical, with the lost work and the
+   resume seconds.  One profiled checkpointed run of PR SD1 and of BFS
+   DD1 must show K1 and K2.  ``memory_reserved`` before and after.
+   Then ``repro_torch.benchmarks.resilience`` (pinned R-MAT scale 10,
+   PR, 18 configs, best of 10; writes
+   ``results/torch/BENCH_resilience.json``).
 5. DLRM serving: MLPerf DLRM (Criteo 1TB) at full width with every
    table capped at 16,000,000 rows (43.0 GB of float32 tables; the
    full 96.1 GB do not fit one 80 GB card), random weights from a
@@ -240,6 +263,19 @@ SLICE_CELL = ("CLR", "SD1")
 SLICE_JOINS = (0, 1, 2, 3, 5, 8, 0, 4)
 SLICE_PARKED = 6
 SLICE_LEN = 4
+#: phase 4e: the segment length of every checkpointed cell, the cells
+#: run again at a shorter one, the seeded faults (app, config, mode) under
+#: RESILIENCE_RETRY attempts, the kill -> resume cell, and the cells run
+#: once more under the profiler, one per kernel
+RESILIENCE_K = 32
+RESILIENCE_SHORT = [("PR", "TG0"), ("CLR", "SD1")]
+RESILIENCE_SHORT_K = 8
+RESILIENCE_RETRY = 6
+FAULT_CASES = [("PR", "TG0", "nan"), ("SSSP", "SD1", "stale"),
+               ("CC", "DD1", "bitflip"), ("BFS", "DD1", "exception"),
+               ("BFS", "DD1", "overflow"), ("BFS", "SD1", "compile")]
+KILL_CELL = ("CLR", "SD1")
+RESILIENCE_PROFILED = {("PR", "SD1"): "seg_sum", ("BFS", "DD1"): "seg_minmax"}
 
 
 def log(*parts) -> None:
@@ -869,12 +905,13 @@ def sweep_phase(graph, dev, flush) -> list:
 
 
 def _engine_runs(program, graph, cfg, dev, engine, kernels,
-                 seed=None) -> tuple:
+                 seed=None, **kw) -> tuple:
     """One untimed run of a cell under ``engine``, then TIMED_RUNS timed
     ones (the fused engine captures in the first); a program with
     random priorities draws them from a fresh generator seeded ``seed``
-    each run.  Returns the last result, the timed seconds, and
-    ``max_memory_allocated`` and ``memory_reserved`` over the runs."""
+    each run; ``kw`` goes to ``run``.  Returns the last result, the
+    timed seconds, and ``max_memory_allocated`` and ``memory_reserved``
+    over the runs."""
     from repro_torch.core import SystemConfig, run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -882,7 +919,7 @@ def _engine_runs(program, graph, cfg, dev, engine, kernels,
     for i in range(TIMED_RUNS + 1):
         key = None if seed is None else torch.Generator().manual_seed(seed)
         res = run(program, graph, SystemConfig.from_name(cfg), key=key,
-                  use_kernels=kernels, engine=engine, device=dev)
+                  use_kernels=kernels, engine=engine, device=dev, **kw)
         if i:
             seconds.append(res.seconds)
     return (res, seconds, torch.cuda.max_memory_allocated(dev),
@@ -1469,6 +1506,224 @@ class _Clock:
             f"({now - self.t0:.1f} s so far)")
 
 
+def _clean_checkpointed(app, cfg, res, plain) -> None:
+    """A clean checkpointed run: converged on its first attempt on the
+    fused engine with no fault, and equal to the plain fused run."""
+    what = f"{app} {cfg} checkpointed"
+    if (res.outcome, res.fault, res.engine, res.attempts) != \
+            ("converged", None, "fused", 1):
+        raise AssertionError(f"{what}: outcome={res.outcome} "
+                             f"engine={res.engine} attempts={res.attempts} "
+                             f"fault={res.fault}")
+    _same_run(app, cfg, res, plain)
+
+
+def _same_answer(app, cfg, got, want) -> None:
+    """A recovered run's answer against the clean run's: the state without
+    the per-iteration frontier scalars (a degraded or overflowing run
+    records other directions and occupancies); PR to atol 1e-6."""
+    from repro_torch.core import FRONTIER_DIR_KEY, FRONTIER_OCC_KEY
+    if app in FLOAT_APPS:
+        _same_run(app, cfg, got, want)
+        return
+    for key, v in want.state.items():
+        if key not in (FRONTIER_DIR_KEY, FRONTIER_OCC_KEY) and \
+                not torch.equal(got.state[key].to(v.device), v):
+            raise AssertionError(f"{app} {cfg}: recovered {key!r} differs "
+                                 "from the clean run")
+
+
+def _boundary_figures(res) -> dict:
+    """Per-boundary figures of a checkpointed run's accounting."""
+    acct = res.resilience
+    n = max(acct["segments"], 1)
+    return dict(segments=acct["segments"], replays=res.dispatches,
+                host_reads=res.host_syncs,
+                boundary_ms=acct["boundary_seconds"] * 1e3 / n,
+                bytes_per_boundary=acct["snapshot_bytes"] / n,
+                sentinel_ms=acct["sentinel_ms"],
+                certificate_ms=acct["certificate_ms"],
+                snapshot_ms=acct["snapshot_ms"])
+
+
+def resilience_phase(graph, dev) -> tuple:
+    """Checkpointed runs on the AMZ stand-in with the kernels: every
+    graph cell at RESILIENCE_K against the plain fused run (1 untimed + 3
+    timed each), two cells at RESILIENCE_SHORT_K, the seeded faults,
+    kill -> resume, one profiled checkpointed run per kernel, then the
+    resilience benchmark.  The K1/K2 counts are set to 0 first and read
+    before the benchmark."""
+    import shutil
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.benchmarks.resilience import run_resilience_bench
+    from repro_torch.core import RetryPolicy, SystemConfig, run
+    from repro_torch.core.durability import CheckpointStore
+    from repro_torch.testing import (ProcessKillFault, SimulatedProcessDeath,
+                                     make_fault)
+    _zero_seg_counts()
+    torch.cuda.synchronize()
+    reserved = [torch.cuda.memory_reserved(dev)]
+    record = dict(cells=[], short=[], faults=[])
+    plains, programs = {}, {}
+    for cfg, apps in GRAPH_CELLS:
+        for app in apps:
+            program, seed = REGISTRY[app](), PRIORITY_SEED.get(app)
+            plain, plain_s, _, _ = _engine_runs(program, graph, cfg, dev,
+                                                "fused", True, seed)
+            res, ckpt_s, _, _ = _engine_runs(
+                program, graph, cfg, dev, "fused", True, seed,
+                checkpoint_every=RESILIENCE_K)
+            _clean_checkpointed(app, cfg, res, plain)
+            plains[app, cfg], programs[app, cfg] = plain, program
+            med, plain_med = statistics.median(ckpt_s), \
+                statistics.median(plain_s)
+            entry = dict(app=app, config=cfg, iterations=res.iterations,
+                         seconds=med, seconds_runs=ckpt_s,
+                         plain_seconds=plain_med, plain_seconds_runs=plain_s,
+                         ratio=med / plain_med,
+                         plain_replays=plain.dispatches,
+                         **_boundary_figures(res))
+            record["cells"].append(entry)
+            log(f"resilience {app} {cfg} K={RESILIENCE_K}: ok "
+                f"iterations={res.iterations} ckpt_ms={med * 1e3:.4f} "
+                f"plain_ms={plain_med * 1e3:.4f} ratio={entry['ratio']:.3f} "
+                f"(medians of {TIMED_RUNS}) segments={entry['segments']} "
+                f"replays={entry['replays']}/{plain.dispatches} "
+                f"host_reads={entry['host_reads']} " + " ".join(
+                    f"{k}={entry[k]}" for k in (
+                        "boundary_ms", "bytes_per_boundary", "sentinel_ms",
+                        "certificate_ms", "snapshot_ms")))
+    for app, cfg in RESILIENCE_SHORT:
+        res, seconds, _, _ = _engine_runs(
+            programs[app, cfg], graph, cfg, dev, "fused", True,
+            PRIORITY_SEED.get(app), checkpoint_every=RESILIENCE_SHORT_K)
+        _clean_checkpointed(app, cfg, res, plains[app, cfg])
+        entry = dict(app=app, config=cfg, k=RESILIENCE_SHORT_K,
+                     seconds=statistics.median(seconds), seconds_runs=seconds,
+                     **_boundary_figures(res))
+        record["short"].append(entry)
+        log(f"resilience {app} {cfg} K={RESILIENCE_SHORT_K}: ok "
+            f"{json.dumps(entry)}")
+
+    for app, cfg, mode in FAULT_CASES:
+        clean, seed = plains[app, cfg], PRIORITY_SEED.get(app)
+        late = {"nan": dict(at_iteration=max(1, clean.iterations - 8)),
+                # the done-boundary: a revert nothing heals afterwards
+                "stale": dict(at_iteration=clean.iterations)}
+        injector = make_fault(mode, **late.get(mode, {}))
+        key = None if seed is None else torch.Generator().manual_seed(seed)
+        t0 = time.perf_counter()
+        res = run(REGISTRY[app](), graph, SystemConfig.from_name(cfg),
+                  key=key, use_kernels=True, device=dev,
+                  checkpoint_every=RESILIENCE_K,
+                  retry=RetryPolicy(max_attempts=RESILIENCE_RETRY),
+                  fault_injector=injector)
+        seconds = time.perf_counter() - t0
+        history = (res.fault or {}).get("history", [])
+        what = f"fault {mode} on {app} {cfg}"
+        if res.outcome == "converged":
+            _same_answer(app, cfg, res, clean)
+        elif res.outcome != "faulted" or res.converged or not history:
+            raise AssertionError(f"{what}: outcome {res.outcome}, "
+                                 f"history {history}")
+        trips = [s for h in history for s in h.get("sentinels", ())]
+        if mode == "stale" and "certificate" not in trips:
+            raise AssertionError(f"{what}: the certificate did not catch it")
+        if mode == "compile" and (res.engine != "host" or not any(
+                h.get("engine") == "fused" for h in history)):
+            raise AssertionError(f"{what}: ended on {res.engine}, history "
+                                 f"{history}")
+        if mode in ("nan", "bitflip", "exception") and not history:
+            raise AssertionError(f"{what}: nothing was caught")
+        entry = dict(app=app, config=cfg, mode=mode, outcome=res.outcome,
+                     engine=res.engine, attempts=res.attempts,
+                     iterations=res.iterations, seconds=seconds,
+                     history=[{k: h.get(k) for k in (
+                         "kind", "sentinels", "segment", "attempt",
+                         "engine")} for h in history])
+        record["faults"].append(entry)
+        log(f"resilience {what}: ok {json.dumps(entry)}")
+
+    # kill -> resume: the resumed run on a fresh program object (as in a
+    # new process: its graph is captured again)
+    app, cfg = KILL_CELL
+    seed, clean = PRIORITY_SEED.get(app), plains[KILL_CELL]
+    kill_dir = ROOT / "build" / "resilience_kill"
+    shutil.rmtree(kill_dir, ignore_errors=True)
+
+    def durable(**kw):
+        key = None if seed is None else torch.Generator().manual_seed(seed)
+        return run(REGISTRY[app](), graph, SystemConfig.from_name(cfg),
+                   key=key, use_kernels=True, device=dev,
+                   checkpoint_every=RESILIENCE_K,
+                   checkpoint_dir=str(kill_dir), **kw)
+
+    kill_at = clean.iterations - RESILIENCE_K
+    killed_at = min(-(-kill_at // RESILIENCE_K) * RESILIENCE_K,
+                    clean.iterations)
+    try:
+        durable(fault_injector=ProcessKillFault(at_iteration=kill_at,
+                                                point="after_segment"))
+        raise AssertionError("kill: the run was not killed")
+    except SimulatedProcessDeath:
+        pass
+    on_disk, disk_faults = CheckpointStore(kill_dir).load_latest()
+    t0 = time.perf_counter()
+    resumed = durable()
+    resume_s = time.perf_counter() - t0
+    _same_run(app, cfg, resumed, clean)
+    if resumed.fault is not None or disk_faults or not resumed.converged:
+        raise AssertionError(f"kill: resumed with {resumed.fault}, "
+                             f"{disk_faults}")
+    lost = killed_at - on_disk.it
+    record["kill"] = dict(
+        app=app, config=cfg, k=RESILIENCE_K, iterations=clean.iterations,
+        killed_at=killed_at, resumed_from=on_disk.it, lost_iterations=lost,
+        lost_work_ratio=lost / clean.iterations, resume_seconds=resume_s,
+        resumed_run_seconds=resumed.seconds,
+        resumed_segments=resumed.resilience["segments"],
+        generations=len(CheckpointStore(kill_dir)))
+    log(f"resilience kill -> resume {app} {cfg}: ok (bit-identical) "
+        f"{json.dumps(record['kill'])}")
+    shutil.rmtree(kill_dir, ignore_errors=True)
+
+    device_launches = {"seg_sum": 0, "seg_minmax": 0}
+    record["profiles"] = {}
+    for (app, cfg), kname in RESILIENCE_PROFILED.items():
+        seed = PRIORITY_SEED.get(app)
+        prof = profile_request(
+            f"resilience {app} {cfg} K={RESILIENCE_K}", lambda: run(
+                programs[app, cfg], graph, SystemConfig.from_name(cfg),
+                key=None if seed is None
+                else torch.Generator().manual_seed(seed),
+                use_kernels=True, device=dev,
+                checkpoint_every=RESILIENCE_K))
+        found = _device_launches(prof)
+        if found[kname] <= 0:
+            raise AssertionError(f"resilience {app} {cfg}: the profiled "
+                                 f"checkpointed run executed no {kname}")
+        for k, n in found.items():
+            device_launches[k] += n
+        record["profiles"][f"{app} {cfg}"] = prof
+    launches = _seg_counts()
+    log(f"resilience path launches: {json.dumps(launches)}; device "
+        f"launches (profiled runs): {json.dumps(device_launches)}")
+    if min(launches.values()) <= 0:
+        raise AssertionError("resilience path: a K1/K2 wrapper never "
+                             "launched")
+    torch.cuda.synchronize()
+    reserved.append(torch.cuda.memory_reserved(dev))
+    record["memory_reserved"] = dict(before=reserved[0], after=reserved[1])
+    log(f"resilience memory_reserved: {reserved[0]} before, {reserved[1]} "
+        f"after the phase's captured graphs")
+    record["benchmark"] = run_resilience_bench(device=dev)
+    for cfg_name, cell in record["benchmark"]["configs"].items():
+        log(f"resilience bench {cfg_name}: {json.dumps(cell)}")
+    log(f"resilience bench recovery: "
+        f"{json.dumps(record['benchmark']['recovery'])}")
+    return record, launches, device_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "results" / "torch" /
@@ -1536,11 +1791,18 @@ def main() -> int:
     # 4c. the tuner, 4d. batched execution
     tuned, tune_launches = autotune_phase(graph, dev)
     clock.lap("4c autotune")
-    del graph
     PLAN_CACHE.clear()
     free_device_memory()
     batched, batch_launches, batch_device = batch_phase(dev)
     clock.lap("4d batch")
+    PLAN_CACHE.clear()
+    free_device_memory()
+
+    # 4e. checkpointed runs, faults, kill -> resume
+    resilient, res_launches, res_device = resilience_phase(graph, dev)
+    clock.lap("4e resilience")
+    del graph
+    PLAN_CACHE.clear()
     free_device_memory()
 
     # 5. DLRM serving
@@ -1561,6 +1823,8 @@ def main() -> int:
             row["autotune_launches"] = tune_launches[row["kernel"]]
             row["batch_launches"] = batch_launches[row["kernel"]]
             row["batch_device_launches"] = batch_device[row["kernel"]]
+            row["resilience_launches"] = res_launches[row["kernel"]]
+            row["resilience_device_launches"] = res_device[row["kernel"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
@@ -1571,6 +1835,9 @@ def main() -> int:
                                    batch=batched,
                                    batch_launches=batch_launches,
                                    batch_device_launches=batch_device,
+                                   resilience=resilient,
+                                   resilience_launches=res_launches,
+                                   resilience_device_launches=res_device,
                                    dlrm=dlrm, attention=attn,
                                    phase_seconds=clock.seconds), indent=1))
     # 7. the kernel table, then the last line

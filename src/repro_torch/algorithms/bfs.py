@@ -57,9 +57,40 @@ def bfs(source: int = 0, max_iters: int = 4096) -> VertexProgram:
     def converged(prev, cur):
         return ~cur["active"].any(-1)
 
+    # Resilience protocol (``bfs.py:66-105``): visited depths never
+    # change, and every depth is -1 or a valid level.
+    sentinels = {
+        "depth_frozen": lambda p, c: ((p["depth"] == _UNSEEN)
+                                      | (c["depth"] == p["depth"])).all(),
+        "depth_range": lambda p, c: ((c["depth"] == _UNSEEN)
+                                     | ((c["depth"] >= 0)
+                                        & (c["depth"] < c["depth"].shape[0]))
+                                     ).all(),
+    }
+
+    # Certificate: one dense O(E) relaxation from the visited set.  At a
+    # fixpoint every reached vertex's depth is min(depth[parent]) + 1 and
+    # every vertex with a visited neighbour is visited.
+    cert_phase = EdgePhase(
+        monoid=MIN,
+        vprop=lambda st, src, w: st["depth"][src] + 1,
+        spred=lambda st, src: st["depth"][src] != _UNSEEN,
+    )
+
+    def certificate(ctx, st):
+        d = st["depth"]
+        cand = ctx.propagate(st, cert_phase, dtype=torch.int32)
+        reach = cand < _INT32_MAX
+        is_src = torch.arange(d.shape[0], device=d.device) == source
+        ok_reached = ~reach | (d == cand) | is_src
+        ok_unreached = reach | (d == _UNSEEN) | is_src
+        return (ok_reached & ok_unreached).all() & ~st["active"].any()
+
     return VertexProgram(
         name="BFS", init=init, step=step, converged=converged,
         extract=lambda st: st["depth"], weighted=False, max_iters=max_iters,
         frontier_init=frontier_init,
         frontier_update=lambda st: st["active"],
+        sentinels=sentinels,
+        certificate=certificate,
     )

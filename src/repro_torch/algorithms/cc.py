@@ -51,10 +51,29 @@ def cc(max_iters: int = 512) -> VertexProgram:
     def converged(prev, cur):
         return (prev["label"] == cur["label"]).all(-1)
 
+    def in_range(lab):
+        return ((lab >= 0)
+                & (lab <= torch.arange(lab.shape[0], device=lab.device))).all()
+
+    # Certificate (``cc.py:71-81``): every label lies in [0, own id], the
+    # labels are pointer-jumping-stable (label[label] == label), and the
+    # min-label reduce over the edges returns each vertex's own label.
+    def certificate(ctx, st):
+        lab = st["label"]
+        nbr = ctx.propagate(st, phase, dtype=torch.int32)
+        has_nbr = nbr < torch.iinfo(torch.int32).max
+        at = torch.clamp(lab, 0, lab.shape[0] - 1).long()  # safe gather
+        root_fixed = (lab[at] == lab).all()
+        edges_agree = (~has_nbr | (nbr == lab)).all()
+        return in_range(lab) & root_fixed & edges_agree
+
     return VertexProgram(
         name="CC", init=init, step=step, converged=converged,
         extract=lambda st: st["label"], weighted=False, max_iters=max_iters,
         frontier_init=lambda g: torch.ones(g.n_nodes, dtype=torch.bool),
         frontier_update=lambda st: torch.ones_like(st["label"],
                                                    dtype=torch.bool),
+        monotone={"label": "non_increasing"},
+        sentinels={"label_range": lambda p, c: in_range(c["label"])},
+        certificate=certificate,
     )

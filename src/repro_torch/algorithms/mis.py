@@ -71,6 +71,23 @@ def mis(max_iters: int = 256) -> VertexProgram:
     def converged(prev, cur):
         return ~(cur["status"] == 0).any(-1)
 
+    # Certificate (``mis.py:84-101``): an O(E) max-reduce marks vertices
+    # with an in-set neighbour: independence, maximality, completeness.
+    cert_phase = EdgePhase(
+        monoid=MAX,
+        vprop=lambda st, src, w: torch.ones_like(src, dtype=torch.float32),
+        spred=lambda st, src: st["status"][src] == 1,
+    )
+
+    def certificate(ctx, st):
+        s = st["status"]
+        nbr_in_mis = ctx.propagate(st, cert_phase) > 0
+        independent = ~((s == 1) & nbr_in_mis).any()
+        maximal = ((s != 2) | nbr_in_mis).all()
+        decided = ~(s == 0).any()
+        valid = ((s >= 0) & (s <= 2)).all()
+        return independent & maximal & decided & valid
+
     return VertexProgram(
         name="MIS", init=init, step=step, converged=converged,
         extract=lambda st: st["status"] == 1, weighted=False,
@@ -79,4 +96,16 @@ def mis(max_iters: int = 256) -> VertexProgram:
         state_pad={"status": 2},
         frontier_init=lambda g: torch.ones(g.n_nodes, dtype=torch.bool),
         frontier_update=lambda st: st["status"] == 0,
+        # Luby rounds only decide vertices; decided statuses and the
+        # priorities never change
+        sentinels={
+            "status_frozen": lambda p, c: ((p["status"] == 0)
+                                           | (c["status"] == p["status"])
+                                           ).all(),
+            "status_range": lambda p, c: ((c["status"] >= 0)
+                                          & (c["status"] <= 2)).all(),
+            "priority_frozen": lambda p, c: (c["priority"]
+                                             == p["priority"]).all(),
+        },
+        certificate=certificate,
     )

@@ -66,4 +66,9 @@ def pagerank(damping: float = 0.85, tol: float = 1e-6,
         extract=lambda st: st["rank"], weighted=False, max_iters=max_iters,
         frontier_init=lambda g: torch.ones(g.n_nodes, dtype=torch.bool),
         frontier_update=lambda st: st["active"],
+        # total mass is 1, so no rank exceeds it; no certificate: the
+        # damped iteration is an attractive fixpoint (``pagerank.py:83-88``)
+        sentinels={"rank_range": lambda p, c: ((c["rank"] >= 0.0)
+                                               & (c["rank"] <= 1.0 + 1e-3)
+                                               ).all()},
     )

@@ -50,9 +50,31 @@ def sssp(source: int = 0, max_iters: int = 4096) -> VertexProgram:
     def converged(prev, cur):
         return ~cur["active"].any(-1)
 
+    # Certificate (``sssp.py:48-70``): one dense O(E) relaxation over the
+    # finite-distance sources.  At a fixpoint every reached non-source
+    # vertex's distance equals min(dist[u] + w) bit for bit (the same
+    # float32 add the run made, reduced by an exact MIN).
+    cert_phase = EdgePhase(
+        monoid=MIN,
+        vprop=lambda st, src, w: st["dist"][src] + w,
+        spred=lambda st, src: torch.isfinite(st["dist"][src]),
+    )
+
+    def certificate(ctx, st):
+        d = st["dist"]
+        cand = ctx.propagate(st, cert_phase)
+        reach = torch.isfinite(cand)
+        is_src = torch.arange(d.shape[0], device=d.device) == source
+        ok = torch.where(reach, (d == cand) | is_src, torch.isinf(d) | is_src)
+        return ok.all() & ~st["active"].any()
+
     return VertexProgram(
         name="SSSP", init=init, step=step, converged=converged,
         extract=lambda st: st["dist"], weighted=True, max_iters=max_iters,
         frontier_init=frontier_init,
         frontier_update=lambda st: st["active"],
+        # the MIN fixpoint only ever improves distances
+        monotone={"dist": "non_increasing"},
+        sentinels={"dist_nonnegative": lambda p, c: (c["dist"] >= 0.0).all()},
+        certificate=certificate,
     )

@@ -11,6 +11,14 @@ from repro_torch.core.batch import (BatchedEdgeContext, BatchSlice,
 from repro_torch.core.plan_cache import PLAN_CACHE, PlanCache
 from repro_torch.core.properties import (TABLE_III, AlgorithmicProperties,
                                          Locus, Traversal)
+from repro_torch.core.resilience import (DEFAULT_CHECKPOINT_EVERY,
+                                         DEFAULT_RING_CAPACITY, Checkpoint,
+                                         CheckpointRing, ExecutionFault,
+                                         FaultInjector, RetryPolicy,
+                                         build_sentinels, check_certificate,
+                                         check_state_host, run_resilient)
+from repro_torch.core.durability import (CHECKPOINT_MAGIC,
+                                         CHECKPOINT_VERSION, CheckpointStore)
 from repro_torch.core.vertex_program import (DENSE_OCC, FRONTIER_DIR_KEY,
                                              FRONTIER_OCC_KEY, MAX, MIN, SUM,
                                              EdgePhase, Monoid,
@@ -24,6 +32,11 @@ __all__ = [
     "bucket_shape", "get_graph_batch", "pack_graphs", "run_batch_slice",
     "run_fused_batch",
     "PLAN_CACHE", "PlanCache",
+    "CHECKPOINT_MAGIC", "CHECKPOINT_VERSION", "CheckpointStore",
+    "DEFAULT_CHECKPOINT_EVERY", "DEFAULT_RING_CAPACITY", "Checkpoint",
+    "CheckpointRing", "ExecutionFault", "FaultInjector", "RetryPolicy",
+    "build_sentinels", "check_certificate", "check_state_host",
+    "run_resilient",
     "TABLE_III", "AlgorithmicProperties", "Locus", "Traversal",
     "DENSE_OCC", "FRONTIER_DIR_KEY", "FRONTIER_OCC_KEY", "MAX", "MIN",
     "SUM", "EdgePhase", "Monoid", "VertexProgram", "dense_occupancy",

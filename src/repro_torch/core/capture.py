@@ -45,7 +45,10 @@ The batched loops of :mod:`repro_torch.core.batch` reuse the same
 guarded step, warm-up and capture with buffers of their own
 (:class:`_FusedBatch`: ``[B]`` done flags and iteration counts,
 ``[B, limit]`` traces; :class:`_FusedSlice`: a slice resumed from
-carried per-graph counters).
+carried per-graph counters), and so do checkpointed runs
+(:class:`_FusedSegment`: the guarded step also stops at a device
+``seg_end``, so one graph serves every segment of
+:mod:`repro_torch.core.resilience`).
 
 On a CPU device the same guarded steps run eagerly,
 :data:`STEPS_PER_LAUNCH` per "launch", with the predicates read on the
@@ -76,7 +79,8 @@ from repro_torch.core.vertex_program import (DENSE_OCC, FRONTIER_DIR_KEY,
 from repro_torch.kernels._build import load
 
 __all__ = ["STEPS_PER_LAUNCH", "CudaGraph", "SOURCE", "run_fused",
-           "cached_engine", "drive", "build_batch", "build_slice"]
+           "cached_engine", "drive", "build_batch", "build_slice",
+           "build_segment"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "graph_if.cu"
 
@@ -485,6 +489,45 @@ class _FusedSlice(_Fused):
         return bool(self._stopped().all())
 
 
+@dataclasses.dataclass(eq=False)
+class _FusedSegment(_Fused):
+    """A checkpointed run's buffers (``resilience.py:336-383``): the
+    guarded step also stops at the device scalar ``seg_end``, so one
+    captured graph serves every segment of every attempt.  ``limit``
+    sizes the trace buffers; ``staging`` holds the pinned host buffers of
+    the boundary reads (:mod:`repro_torch.core.resilience`)."""
+    seg_end: Optional[torch.Tensor] = None   # int32 scalar
+    staging: dict = dataclasses.field(default_factory=dict)
+
+    def guarded_step(self, control) -> None:
+        live = (self.it < self.seg_end) & ~self.done
+        control.when(live, self._step)
+
+    def load(self, cp) -> None:
+        """Write a checkpoint (host numpy state, ``it``, ``done``, trace
+        buffers) into the static buffers, as :meth:`_FusedSlice.load`."""
+        self.reset({k: torch.as_tensor(v) for k, v in cp.state.items()})
+        self.it.fill_(int(cp.it))
+        self.done.fill_(bool(cp.done))
+        if self.dirs is not None:
+            self.dirs.copy_(torch.as_tensor(cp.dir_buf))
+        if self.occs is not None:
+            self.occs.copy_(torch.as_tensor(cp.occ_buf))
+
+    def load_state(self, state) -> None:
+        """Write a host state into the state buffers, position kept."""
+        for k, buf in self.state.items():
+            buf.copy_(torch.as_tensor(state[k]))
+
+    def advance(self, lo: int, seg_end: int) -> tuple:
+        """Replay from iteration ``lo`` up to ``seg_end`` or convergence:
+        at most ``ceil((seg_end - lo) / steps)`` replays, one poll each.
+        Returns (replays, done)."""
+        self.seg_end.fill_(seg_end)
+        launches, done, _ = drive(self, seg_end - lo)
+        return launches, done
+
+
 @contextlib.contextmanager
 def _no_host_reads(device: torch.device):
     """On the card, make a synchronizing operation (a host read of a
@@ -544,6 +587,16 @@ def build_slice(program: VertexProgram, bctx, state, slice_len: int,
         parked=torch.zeros(b, dtype=torch.bool, device=dev),
         limit_b=torch.zeros(b, dtype=torch.int32, device=dev),
         **_buffers(bctx, state, slice_len, traced, occ_traced, (b,))))
+
+
+def build_segment(program: VertexProgram, ctx: EdgeContext, state,
+                  limit: int, traced: bool,
+                  occ_traced: bool) -> _FusedSegment:
+    """A checkpointed run's buffers and graph (see :func:`_capture`)."""
+    return _capture(_FusedSegment(
+        program=program, ctx=ctx, limit=limit, steps=STEPS_PER_LAUNCH,
+        seg_end=torch.zeros((), dtype=torch.int32, device=ctx.device),
+        **_buffers(ctx, state, limit, traced, occ_traced)))
 
 
 def _capture(ex: _Fused) -> _Fused:

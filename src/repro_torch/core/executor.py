@@ -497,10 +497,22 @@ class RunResult:
     #: blocking device-to-host reads inside the timed loop (the fused
     #: engine: one poll of ``done`` per launch).
     host_syncs: int = 0
-    #: "converged" | "iter_limit".
+    #: "converged" | "iter_limit" | "faulted" (the last only from the
+    #: resilience layer).
     outcome: Optional[str] = None
     #: name of the config this run executed under.
     config_name: Optional[str] = None
+    #: a resilient run's fault record: ``history`` (one entry per failed
+    #: attempt or rejected checkpoint), ``recovered`` and, when faulted,
+    #: ``final``; None for runs that never faulted.
+    fault: Optional[dict] = None
+    #: executions a resilient run made, the first included.
+    attempts: int = 1
+    #: a resilient run's accounting over its attempts: segments, their
+    #: boundaries' host seconds and bytes read, and on the card the
+    #: stream ms (between CUDA events, issue gaps included) of the
+    #: sentinels, certificates and snapshot copies.
+    resilience: Optional[dict] = None
 
     def __post_init__(self):
         if self.outcome is None:
@@ -582,7 +594,10 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
         key: Optional[torch.Generator] = None,
         max_iters: Optional[int] = None, use_kernels: bool = False,
         sparse_edge_capacity: Optional[int] = None,
-        engine: str = "fused", autotune=None, device=None) -> RunResult:
+        engine: str = "fused", autotune=None, device=None,
+        checkpoint_every: int = 0, retry=None, sentinels: bool = True,
+        ring_capacity: Optional[int] = None, fault_injector=None,
+        checkpoint_dir: Optional[str] = None) -> RunResult:
     """Iterate ``program`` on ``graph`` under ``config`` to convergence
     (``executor.py:830``).
 
@@ -603,14 +618,41 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
     "heuristic" one from the graph's degree features, "measure" (or
     True) the fastest of a timed sweep (:mod:`repro_torch.kernels.autotune`;
     on the card CUDA events, and a disk cache under
-    ``results/torch/``).  Plans change times, never results.  The
-    reference's resilience and specialization knobs are not accepted
+    ``results/torch/``).  Plans change times, never results.
+
+    Resilience knobs (any of them set hands off to
+    :func:`repro_torch.core.resilience.run_resilient`, whose results
+    equal the plain engines'): ``checkpoint_every=K`` runs the loop in
+    K-iteration segments whose boundaries snapshot the state into a host
+    checkpoint ring and check the program's sentinels (and, at
+    convergence, its certificate); ``retry=RetryPolicy(...)`` rolls back
+    and re-executes on a failure, walking the degradation chain
+    (autotuned to default plans, sparse to dense frontier, fused to host
+    engine); ``sentinels=False`` turns the battery off;
+    ``ring_capacity`` bounds the ring; ``fault_injector`` is the seeded
+    fault harness's hook (:mod:`repro_torch.testing.faults`);
+    ``checkpoint_dir`` spills every boundary to an on-disk
+    :class:`~repro_torch.core.durability.CheckpointStore` and resumes a
+    killed run from it.  The reference's ``specialize`` is not accepted
     yet; many graphs at once go through :func:`run_batch`.
     """
     if engine not in ("fused", "host"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'fused' or 'host'")
     device = resolve_device(device)
+    if (checkpoint_every or retry is not None or fault_injector is not None
+            or checkpoint_dir is not None):
+        from repro_torch.core.resilience import run_resilient
+        res = run_resilient(
+            program, graph, config, key=key, max_iters=max_iters,
+            use_kernels=use_kernels,
+            sparse_edge_capacity=sparse_edge_capacity, engine=engine,
+            autotune=autotune, device=device,
+            checkpoint_every=checkpoint_every, retry=retry,
+            sentinels=sentinels, ring_capacity=ring_capacity,
+            fault_injector=fault_injector, checkpoint_dir=checkpoint_dir)
+        res.config_name = config.name
+        return res
     ctx = EdgeContext.create(graph, config, use_kernels=use_kernels,
                              sparse_edge_capacity=sparse_edge_capacity,
                              autotune=autotune, device=device)

@@ -100,6 +100,16 @@ class VertexProgram:
     (no ``vmap``); ``step`` takes ``it`` as a scalar or as ``[B]``
     per-graph counters.  ``state_pad`` maps a state key to the fill of
     its padding rows where 0 is not inert (MIS: status 2, "removed").
+
+    Resilience protocol (:mod:`repro_torch.core.resilience`,
+    ``vertex_program.py:146-173``): ``monotone`` maps state keys to
+    "non_increasing"/"non_decreasing", checked between checkpoints;
+    ``sentinels`` maps names to ``(prev, cur) -> bool tensor`` invariants
+    (True = healthy); ``certificate`` is ``(ctx, state) -> bool tensor``,
+    a one-shot O(E) fixpoint proof of a converged state.  Both are torch
+    ops on the state's device that read nothing on the host (no
+    ``.item()``, ``bool()`` or Python ``if`` on a tensor): their flags are
+    stacked on the device and read once per segment.
     """
     name: str
     init: Callable[..., State]                         # (graph, key)
@@ -111,6 +121,9 @@ class VertexProgram:
     frontier_init: Optional[Callable[..., torch.Tensor]] = None  # (graph)
     frontier_update: Optional[Callable[[State], torch.Tensor]] = None
     state_pad: Optional[dict] = None  # key -> padding fill value
+    monotone: Optional[dict] = None   # key -> ordering direction
+    sentinels: Optional[dict] = None  # name -> (prev, cur) -> ok
+    certificate: Optional[Callable] = None  # (ctx, state) -> ok
 
     @property
     def properties(self) -> AlgorithmicProperties:

@@ -700,6 +700,128 @@ def test_flash_attention_bf16_refuses_a_misaligned_view(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# checkpointed runs (core/resilience.py on the segment engine)
+def _key(app):
+    return torch.Generator().manual_seed(11) if app in ("MIS", "CLR") \
+        else None
+
+
+def _cell(app, g, cfg, dev, **kw):
+    return run(REGISTRY[app](), g, SystemConfig.from_name(cfg), key=_key(app),
+               use_kernels=True, device=dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 32])
+@pytest.mark.parametrize("cfg", ["SD1", "TG0", "DD1"])
+@pytest.mark.parametrize("app", ["BFS", "SSSP", "CC", "MIS", "CLR", "PR"])
+def test_checkpointed_fused_equals_plain_fused_on_the_card(
+        cuda_device, engine_graph, app, cfg, k):
+    plain = _cell(app, engine_graph, cfg, cuda_device)
+    res = _cell(app, engine_graph, cfg, cuda_device, checkpoint_every=k)
+    assert res.outcome == "converged" and res.fault is None
+    assert res.engine == "fused" and res.attempts == 1
+    if app == "PR":  # K1's float atomics add in a run-dependent order
+        assert abs(res.iterations - plain.iterations) <= 1
+        torch.testing.assert_close(res.state["rank"], plain.state["rank"],
+                                   rtol=0, atol=1e-6)
+        return
+    assert res.iterations == plain.iterations
+    assert res.direction_trace == plain.direction_trace
+    assert res.occupancy_trace == plain.occupancy_trace
+    for key, want in plain.state.items():
+        assert torch.equal(res.state[key], want), key
+
+
+@pytest.mark.cuda
+def test_one_segment_graph_serves_every_segment_and_attempt(cuda_device,
+                                                            engine_graph):
+    from repro_torch.core import RetryPolicy
+    from repro_torch.testing import NaNFault
+    PLAN_CACHE.clear()
+    program, config = pagerank(), SystemConfig.from_name("SD1")
+    kw = dict(use_kernels=True, device=cuda_device)
+    res = run(program, engine_graph, config, checkpoint_every=4,
+              retry=RetryPolicy(max_attempts=3),
+              fault_injector=NaNFault(at_iteration=8), **kw)
+    assert res.converged and res.attempts == 2 and res.engine == "fused"
+    assert res.resilience["segments"] > 3
+    assert PLAN_CACHE.kinds()["exec_fn"] == 1
+    for k in (1, 8):  # other segment lengths replay the same graph
+        run(program, engine_graph, config, checkpoint_every=k, **kw)
+    assert PLAN_CACHE.kinds()["exec_fn"] == 1
+    run(program, engine_graph, config, **kw)  # the plain engine's own
+    assert PLAN_CACHE.kinds()["exec_fn"] == 2
+
+
+@pytest.mark.cuda
+def test_one_host_read_per_segment_besides_the_polls(cuda_device,
+                                                     engine_graph,
+                                                     monkeypatch):
+    """Each boundary (sentinels, and the certificate on the last) makes
+    exactly one synchronizing call; the rest are the polls."""
+    import warnings
+    from repro_torch.core import resilience
+    boundary, reads = resilience._boundary, []
+
+    def counted(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = boundary(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        reads.append(sum("synchroniz" in str(w.message) for w in caught))
+        return out
+
+    _cell("BFS", engine_graph, "DD1", cuda_device, checkpoint_every=2)
+    monkeypatch.setattr(resilience, "_boundary", counted)
+    res = _cell("BFS", engine_graph, "DD1", cuda_device, checkpoint_every=2)
+    segments = res.resilience["segments"]
+    assert segments == -(-res.iterations // 2) and reads == [1] * segments
+    assert res.host_syncs == res.dispatches + segments
+
+
+@pytest.mark.cuda
+def test_segment_replays_make_no_hidden_sync(cuda_device, engine_graph,
+                                             monkeypatch):
+    launch = capture._FusedSegment.launch
+
+    def strict(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(capture._FusedSegment, "launch", strict)
+    res = _cell("BC", engine_graph, "DD1", cuda_device, checkpoint_every=3)
+    assert res.converged and res.fault is None and res.dispatches > 0
+
+
+@pytest.mark.cuda
+def test_kill_and_resume_on_the_card(cuda_device, engine_graph, tmp_path):
+    from repro_torch.testing import ProcessKillFault, SimulatedProcessDeath
+    kw = dict(checkpoint_every=4)
+    clean = _cell("CLR", engine_graph, "SD1", cuda_device, **kw)
+    kill_at = clean.iterations - 4
+    with pytest.raises(SimulatedProcessDeath):
+        _cell("CLR", engine_graph, "SD1", cuda_device,
+              checkpoint_dir=str(tmp_path), **kw,
+              fault_injector=ProcessKillFault(at_iteration=kill_at,
+                                              point="after_segment"))
+    resumed = _cell("CLR", engine_graph, "SD1", cuda_device,
+                    checkpoint_dir=str(tmp_path), **kw)
+    assert resumed.converged and resumed.fault is None
+    assert resumed.iterations == clean.iterations
+    assert resumed.direction_trace == clean.direction_trace
+    assert resumed.resilience["segments"] <= 2
+    for key, want in clean.state.items():
+        assert torch.equal(resumed.state[key], want), key
+
+
+# ---------------------------------------------------------------------------
 # the tuner's plans and the batched engine
 @pytest.fixture(scope="module")
 def tune_graph():
