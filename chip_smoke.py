@@ -121,6 +121,26 @@ script exits non-zero:
    Then ``repro_torch.benchmarks.resilience`` (pinned R-MAT scale 10,
    PR, 18 configs, best of 10; writes
    ``results/torch/BENCH_resilience.json``).
+4f. specialization: ``python -m repro_torch.benchmarks.matrix --scale
+   1`` in a subprocess with ``PYTHONHASHSEED=0`` (every registered app on
+   the six Table II stand-ins at Table II's own sizes, 18 configs each,
+   K1/K2 on, ``autotune="measure"``, best of 3; writes
+   ``results/torch/BENCH_matrix.json``; every cell must converge and the
+   matrix must have launched K1 and K2), then ``python -m
+   repro_torch.benchmarks.specialize`` in the same kind of subprocess
+   (trains the model into ``results/torch/specialize_model.json``,
+   evaluates every policy, writes ``results/torch/BENCH_specialize.json``;
+   its gate must hold); both exiting 0, their output in ``matrix.log``
+   and ``specialize.log`` beside ``--out``.  Then, with the K1/K2 counts
+   set to 0, every app on the AMZ stand-in with ``specialize="static"``
+   and ``"learned"`` (kernels on; a fallback warning fails the run):
+   ``config_source`` as asked, the result equal to a plain ``run`` under
+   the resolved config (phase 4's tolerances), the numpy oracle, and one
+   profiled run with a K1/K2 device op wherever the resolved config
+   reduces through a kernel order (``SD*``, ``T*``, ``D*``).  Last,
+   ``run_batch(..., specialize="learned")`` on four stand-ins of
+   different shapes, each result against its graph's sequential run
+   under its own resolved config.
 5. DLRM serving: MLPerf DLRM (Criteo 1TB) at full width with every
    table capped at 16,000,000 rows (43.0 GB of float32 tables; the
    full 96.1 GB do not fit one 80 GB card), random weights from a
@@ -160,6 +180,7 @@ import argparse
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -276,6 +297,17 @@ FAULT_CASES = [("PR", "TG0", "nan"), ("SSSP", "SD1", "stale"),
                ("BFS", "DD1", "overflow"), ("BFS", "SD1", "compile")]
 KILL_CELL = ("CLR", "SD1")
 RESILIENCE_PROFILED = {("PR", "SD1"): "seg_sum", ("BFS", "DD1"): "seg_minmax"}
+#: phase 4f: the matrix's scale (Table II's own sizes), the hash seed of
+#: both benchmark subprocesses (``paper_graph`` seeds with ``hash(name)``),
+#: their time limit, the specialize modes of the in-process runs, and
+#: the batched specialized runs' stand-ins, scale and apps
+MATRIX_SCALE = 1
+HASH_SEED = "0"
+BENCH_TIMEOUT_S = 900
+SPECIALIZE_MODES = ("static", "learned")
+SPEC_BATCH_GRAPHS = ("DCT", "OLS", "RAJ", "WNG")
+SPEC_BATCH_SCALE = 16
+SPEC_BATCH_APPS = ("BFS", "SSSP", "PR")
 
 
 def log(*parts) -> None:
@@ -979,6 +1011,23 @@ def _oracle_check(app, graph, res, program, oracles) -> None:
                                    atol=1e-5 * float(np.abs(want).max()))
 
 
+_ORACLES: dict = {}
+
+
+def _oracles(graph) -> dict:
+    """The numpy oracles of ``graph``'s exact and float apps, computed
+    once per graph."""
+    from repro_torch.algorithms import reference as ref
+    if id(graph) not in _ORACLES:
+        t0 = time.perf_counter()
+        _ORACLES[id(graph)] = {
+            "BFS": ref.bfs_np(graph), "SSSP": ref.sssp_np(graph),
+            "PR": ref.pagerank_np(graph), "CC": ref.cc_np(graph),
+            "BC": ref.bc_np(graph)}
+        log(f"oracles: {time.perf_counter() - t0:.1f} s")
+    return _ORACLES[id(graph)]
+
+
 def _device_launches(prof_record: dict) -> dict:
     """K1 and K2 launches among a profiled run's device ops."""
     counts = {"seg_sum": 0, "seg_minmax": 0}
@@ -992,7 +1041,6 @@ def main_path(graph, dev) -> tuple:
     """Every app of the registry through ``run`` with the kernels, under
     both engines; the K1/K2 counts are set to 0 first and read last."""
     from repro_torch.algorithms import REGISTRY
-    from repro_torch.algorithms import reference as ref
     from repro_torch.core import SystemConfig, run
     from repro_torch.kernels.segment_reduce import seg_minmax, seg_sum
     kernels = {"seg_sum": seg_sum, "seg_minmax": seg_minmax}
@@ -1053,11 +1101,7 @@ def main_path(graph, dev) -> tuple:
                                      "reductions")
             plain_seconds[c["app"], c["config"]] = seconds
 
-    t0 = time.perf_counter()
-    oracles = {"BFS": ref.bfs_np(graph), "SSSP": ref.sssp_np(graph),
-               "PR": ref.pagerank_np(graph), "CC": ref.cc_np(graph),
-               "BC": ref.bc_np(graph)}
-    log(f"oracles: {time.perf_counter() - t0:.1f} s")
+    oracles = _oracles(graph)
     record = []
     for c in cells:
         app, cfg, fused, host = c["app"], c["config"], c["fused"], c["host"]
@@ -1724,6 +1768,197 @@ def resilience_phase(graph, dev) -> tuple:
     return record, launches, device_launches
 
 
+def _bench_subprocess(module: str, args: list, log_path: Path) -> float:
+    """``python -m module args`` from the checkout's root with
+    ``PYTHONHASHSEED`` fixed, its output to ``log_path``; fails unless it
+    exits 0 within BENCH_TIMEOUT_S.  Returns its seconds."""
+    env = dict(os.environ, PYTHONHASHSEED=HASH_SEED)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as fh:
+        proc = subprocess.run([sys.executable, "-m", module, *args],
+                              cwd=ROOT, env=env, stdout=fh,
+                              stderr=subprocess.STDOUT,
+                              timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
+                             + log_path.read_text()[-4000:])
+    log(f"{module}: exit 0 in {seconds:.1f} s (log {log_path})")
+    return seconds
+
+
+def _kernel_order(config_name: str) -> bool:
+    """Whether K1/K2 carry a config's reductions under
+    ``use_kernels=True``: the owned push order (``SD*``), the CSC pull
+    order (``T*``) and both in the dynamic cells (``D*``)."""
+    return config_name[0] in "TD" or config_name[:2] == "SD"
+
+
+def specialize_phase(graph, dev, log_dir: Path) -> tuple:
+    """The matrix and the specialize harness in subprocesses, then the
+    specialized runs on the AMZ stand-in and the batched specialized
+    runs.  The K1/K2 counts are set to 0 before the in-process runs and
+    read after them."""
+    import warnings
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.benchmarks.matrix import OUT as MATRIX_OUT
+    from repro_torch.benchmarks.specialize import OUT as SPEC_OUT
+    from repro_torch.core import (SpecializeFallbackWarning, SystemConfig,
+                                  resolve_config, run, run_batch)
+    from repro_torch.core import specialize_learned as sl
+    from repro_torch.graph import paper_graph
+    record = {}
+    log_dir.mkdir(parents=True, exist_ok=True)
+    record["matrix_seconds"] = _bench_subprocess(
+        "repro_torch.benchmarks.matrix", ["--scale", str(MATRIX_SCALE)],
+        log_dir / "matrix.log")
+    matrix = json.loads(MATRIX_OUT.read_text())
+    wl = matrix["workload"]
+    n_cells = sum(len(c["configs"]) for c in matrix["cells"].values())
+    if (wl["scale"], wl["use_kernels"], wl["autotune"], len(wl["configs"]),
+            matrix["pythonhashseed"]) != (MATRIX_SCALE, True, "measure", 18,
+                                          HASH_SEED):
+        raise AssertionError(f"matrix: ran {wl}")
+    stuck = [f"{w}/{c}" for w, cell in matrix["cells"].items()
+             for c, r in cell["configs"].items() if not r["converged"]]
+    if stuck or n_cells != len(wl["apps"]) * len(wl["graphs"]) * 18:
+        raise AssertionError(f"matrix: {n_cells} cells, not converged: "
+                             f"{stuck}")
+    if min(matrix["kernel_launches"].values()) <= 0:
+        raise AssertionError(f"matrix: K1/K2 wrapper calls "
+                             f"{matrix['kernel_launches']}")
+    summary = matrix["summary"]
+    log(f"matrix: {matrix['summary']['n_workloads']} workloads, {n_cells} "
+        f"cells, scale {wl['scale']}, repeats {wl['repeats']}, autotune "
+        f"{wl['autotune']}, use_kernels {wl['use_kernels']}, "
+        f"PYTHONHASHSEED={matrix['pythonhashseed']}, card {matrix['card']}")
+    log(f"matrix: geomean_specialization_gain="
+        f"{summary['geomean_specialization_gain']} n_distinct_best="
+        f"{summary['n_distinct_best']} best_config_histogram="
+        f"{json.dumps(summary['best_config_histogram'])}")
+    log(f"matrix launches: {json.dumps(matrix['kernel_launches'])}")
+    for name, rec in matrix["inputs"].items():
+        log(f"matrix input {name}: {json.dumps(rec)}")
+    record["matrix"] = dict(summary=summary, inputs=matrix["inputs"],
+                            kernel_launches=matrix["kernel_launches"],
+                            workload=wl, card=matrix["card"])
+
+    record["specialize_seconds"] = _bench_subprocess(
+        "repro_torch.benchmarks.specialize", [], log_dir / "specialize.log")
+    bench = json.loads(SPEC_OUT.read_text())
+    acc = bench["accuracy"]
+    log("specialize: accuracy " + " ".join(
+        f"{k}={acc[k]}" for k in ("learned", "learned_tol", "static_full",
+                                  "static_full_tol", "static_partial",
+                                  "static_partial_tol", "trace_augmented",
+                                  "trace_augmented_tol")))
+    log(f"specialize: speedup_vs_best_always="
+        f"{bench['e2e']['speedup_vs_best_always']} best_always="
+        f"{json.dumps(bench['e2e']['best_always'])} gate="
+        f"{json.dumps(bench['gate'])} model depth={bench['model']['depth']} "
+        f"leaves={bench['model']['n_leaves']}")
+    log(f"specialize: taxonomy {json.dumps(bench['taxonomy'])}")
+    if not all(bench["gate"].values()):
+        raise AssertionError(f"specialize: gate {bench['gate']}")
+    record["specialize"] = {k: bench[k] for k in ("accuracy", "e2e", "gate",
+                                                  "model", "taxonomy")}
+
+    # specialized runs on the AMZ stand-in
+    _zero_seg_counts()
+    sl.clear_memo()
+    oracles = _oracles(graph)
+    caller = SystemConfig.from_name("TG0")
+    device_launches = {"seg_sum": 0, "seg_minmax": 0}
+    record["runs"] = []
+    for app in REGISTRY:
+        program, seed = REGISTRY[app](), PRIORITY_SEED.get(app)
+
+        def key():
+            return None if seed is None else \
+                torch.Generator().manual_seed(seed)
+
+        for mode in SPECIALIZE_MODES:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", SpecializeFallbackWarning)
+                res = run(program, graph, caller, key=key(),
+                          use_kernels=True, device=dev, specialize=mode)
+            cfg = res.config_name
+            if res.config_source != mode or not res.converged:
+                raise AssertionError(f"specialize {app} {mode}: source "
+                                     f"{res.config_source}, converged "
+                                     f"{res.converged}")
+            plain = run(program, graph, SystemConfig.from_name(cfg),
+                        key=key(), use_kernels=True, device=dev)
+            _same_run(app, cfg, res, plain)
+            _oracle_check(app, graph, res, program, oracles)
+            entry = dict(app=app, mode=mode, config=cfg,
+                         source=res.config_source, iterations=res.iterations,
+                         seconds=res.seconds, plain_seconds=plain.seconds)
+            if _kernel_order(cfg):
+                for attempt in range(PROFILE_ATTEMPTS):
+                    # late in a long process the tracer can miss the
+                    # kernel nodes of a graph captured before the
+                    # profile: the later attempts capture anew inside it
+                    fresh = attempt >= 2
+                    prog = REGISTRY[app]() if fresh else program
+                    prof = profile_request(
+                        f"specialize {app} {mode} {cfg}"
+                        + (" (new capture)" if fresh else ""), lambda: run(
+                            prog, graph, SystemConfig.from_name(cfg),
+                            key=key(), use_kernels=True, device=dev))
+                    found = _device_launches(prof)
+                    if sum(found.values()) > 0:
+                        break
+                entry["profiled_capture"] = "new" if fresh else "replayed"
+                if sum(found.values()) <= 0:
+                    raise AssertionError(f"specialize {app} {mode} {cfg}: "
+                                         "the profiled run executed no "
+                                         "K1/K2")
+                for k, n in found.items():
+                    device_launches[k] += n
+                entry["device_launches"] = found
+            record["runs"].append(entry)
+            log(f"specialize run {app} {mode}: ok {json.dumps(entry)}")
+    launches = _seg_counts()
+    log(f"specialize path launches: {json.dumps(launches)}; device "
+        f"launches (profiled runs): {json.dumps(device_launches)}")
+    if sum(launches.values()) <= 0:
+        raise AssertionError("specialize path: no K1/K2 wrapper launched")
+
+    # batched specialized runs on stand-ins of different shapes
+    record["batch"] = []
+    for app in SPEC_BATCH_APPS:
+        program = REGISTRY[app]()
+        gs = [paper_graph(n, scale=SPEC_BATCH_SCALE,
+                          weighted=program.weighted)
+              for n in SPEC_BATCH_GRAPHS]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", SpecializeFallbackWarning)
+            results = run_batch(program, gs, caller, use_kernels=True,
+                                device=dev, specialize="learned")
+            own = [resolve_config(program, g, caller, "learned")
+                   for g in gs]
+        for name, g, r, (cfg, source) in zip(SPEC_BATCH_GRAPHS, gs,
+                                             results, own):
+            if (r.config_name, r.config_source) != (cfg.name, "learned"):
+                raise AssertionError(f"specialize batch {app} {name}: "
+                                     f"{r.config_name} ({r.config_source}),"
+                                     f" resolved alone {cfg.name}")
+            seq = run(program, g, cfg, use_kernels=True, device=dev)
+            _batch_same(app, cfg.name, r, seq)
+        entry = dict(app=app, graphs=list(SPEC_BATCH_GRAPHS),
+                     sizes=[[g.n_nodes, g.n_edges] for g in gs],
+                     configs=[r.config_name for r in results])
+        record["batch"].append(entry)
+        log(f"specialize batch {app}: ok {json.dumps(entry)}")
+    del gs
+    paper_graph.cache_clear()
+    return record, launches, device_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "results" / "torch" /
@@ -1732,6 +1967,9 @@ def main() -> int:
                     help="time K1/K2 over chunk sizes and threads per CTA, "
                          "and stop")
     args = ap.parse_args()
+    # the model file and the benchmarks' records are paths from the root
+    args.out = str(Path(args.out).resolve())
+    os.chdir(ROOT)
 
     # 1. device
     if not torch.cuda.is_available():
@@ -1801,6 +2039,14 @@ def main() -> int:
     # 4e. checkpointed runs, faults, kill -> resume
     resilient, res_launches, res_device = resilience_phase(graph, dev)
     clock.lap("4e resilience")
+    PLAN_CACHE.clear()
+    free_device_memory()
+
+    # 4f. the specialization study: the matrix, the model, specialized runs
+    specialized, spec_launches, spec_device = specialize_phase(
+        graph, dev, out.parent)
+    clock.lap("4f specialize")
+    specialized["seconds"] = clock.seconds["4f specialize"]
     del graph
     PLAN_CACHE.clear()
     free_device_memory()
@@ -1825,6 +2071,10 @@ def main() -> int:
             row["batch_device_launches"] = batch_device[row["kernel"]]
             row["resilience_launches"] = res_launches[row["kernel"]]
             row["resilience_device_launches"] = res_device[row["kernel"]]
+            row["matrix_launches"] = \
+                specialized["matrix"]["kernel_launches"][row["kernel"]]
+            row["specialize_launches"] = spec_launches[row["kernel"]]
+            row["specialize_device_launches"] = spec_device[row["kernel"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
@@ -1838,6 +2088,9 @@ def main() -> int:
                                    resilience=resilient,
                                    resilience_launches=res_launches,
                                    resilience_device_launches=res_device,
+                                   specialize=specialized,
+                                   specialize_launches=spec_launches,
+                                   specialize_device_launches=spec_device,
                                    dlrm=dlrm, attention=attn,
                                    phase_seconds=clock.seconds), indent=1))
     # 7. the kernel table, then the last line

@@ -9,6 +9,18 @@ from repro_torch.core.batch import (BatchedEdgeContext, BatchSlice,
                                     get_graph_batch, pack_graphs,
                                     run_batch_slice, run_fused_batch)
 from repro_torch.core.plan_cache import PLAN_CACHE, PlanCache
+from repro_torch.core.model import specialize, specialize_partial
+from repro_torch.core.specialize_learned import (DEFAULT_MODEL_PATH,
+                                                 LearnedSpecializer,
+                                                 ModelFileError,
+                                                 SpecializeFallbackWarning,
+                                                 features_from_graph,
+                                                 fit_matrix, load_model,
+                                                 project_config,
+                                                 resolve_config, save_model,
+                                                 static_config_for)
+from repro_torch.core.taxonomy import (H100, PAPER_GPU, GraphProfile,
+                                       HwProfile, classify, profile_graph)
 from repro_torch.core.properties import (TABLE_III, AlgorithmicProperties,
                                          Locus, Traversal)
 from repro_torch.core.resilience import (DEFAULT_CHECKPOINT_EVERY,
@@ -37,7 +49,14 @@ __all__ = [
     "CheckpointRing", "ExecutionFault", "FaultInjector", "RetryPolicy",
     "build_sentinels", "check_certificate", "check_state_host",
     "run_resilient",
+    "specialize", "specialize_partial",
+    "DEFAULT_MODEL_PATH", "LearnedSpecializer", "ModelFileError",
+    "SpecializeFallbackWarning", "features_from_graph", "fit_matrix",
+    "load_model", "project_config", "resolve_config", "save_model",
+    "static_config_for",
     "TABLE_III", "AlgorithmicProperties", "Locus", "Traversal",
+    "H100", "PAPER_GPU", "GraphProfile", "HwProfile", "classify",
+    "profile_graph",
     "DENSE_OCC", "FRONTIER_DIR_KEY", "FRONTIER_OCC_KEY", "MAX", "MIN",
     "SUM", "EdgePhase", "Monoid", "VertexProgram", "dense_occupancy",
 ]

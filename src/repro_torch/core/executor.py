@@ -50,6 +50,7 @@ from repro_torch.core.frontier import (ALPHA, choose_direction,
                                        dense_to_sparse,
                                        gather_frontier_edges)
 from repro_torch.core.plan_cache import PLAN_CACHE
+from repro_torch.core.specialize_learned import resolve_config
 from repro_torch.core.vertex_program import (FRONTIER_DIR_KEY,
                                              FRONTIER_OCC_KEY, EdgePhase,
                                              VertexProgram, dense_occupancy)
@@ -502,6 +503,11 @@ class RunResult:
     outcome: Optional[str] = None
     #: name of the config this run executed under.
     config_name: Optional[str] = None
+    #: where that config came from: "caller" (the ``config`` argument),
+    #: "static" (Fig. 4), "static_partial" (Sec. IV-B) or "learned" (the
+    #: trained model); see
+    #: :func:`repro_torch.core.specialize_learned.resolve_config`.
+    config_source: str = "caller"
     #: a resilient run's fault record: ``history`` (one entry per failed
     #: attempt or rejected checkpoint), ``recovered`` and, when faulted,
     #: ``final``; None for runs that never faulted.
@@ -597,7 +603,7 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
         engine: str = "fused", autotune=None, device=None,
         checkpoint_every: int = 0, retry=None, sentinels: bool = True,
         ring_capacity: Optional[int] = None, fault_injector=None,
-        checkpoint_dir: Optional[str] = None) -> RunResult:
+        checkpoint_dir: Optional[str] = None, specialize=None) -> RunResult:
     """Iterate ``program`` on ``graph`` under ``config`` to convergence
     (``executor.py:830``).
 
@@ -633,13 +639,26 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
     fault harness's hook (:mod:`repro_torch.testing.faults`);
     ``checkpoint_dir`` spills every boundary to an on-disk
     :class:`~repro_torch.core.durability.CheckpointStore` and resumes a
-    killed run from it.  The reference's ``specialize`` is not accepted
-    yet; many graphs at once go through :func:`run_batch`.
+    killed run from it.  Many graphs at once go through :func:`run_batch`.
+
+    ``specialize`` picks the config that runs: "off" (or None, False)
+    runs ``config``; "static" applies the paper's full decision tree
+    (Fig. 4) to the program's Table III properties and the graph's
+    taxonomy profile; "learned" asks the trained model at
+    :data:`~repro_torch.core.specialize_learned.DEFAULT_MODEL_PATH`,
+    falling back learned -> static partial -> caller with a
+    :class:`~repro_torch.core.specialize_learned.SpecializeFallbackWarning`
+    when a tier is unavailable.  Anything else raises ``ValueError``.
+    The resolved config keeps the caller's ``n_chunks``; its name and
+    source are stamped on ``RunResult.config_name`` and
+    ``config_source``.
     """
     if engine not in ("fused", "host"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'fused' or 'host'")
     device = resolve_device(device)
+    config, config_source = resolve_config(program, graph, config,
+                                           specialize)
     if (checkpoint_every or retry is not None or fault_injector is not None
             or checkpoint_dir is not None):
         from repro_torch.core.resilience import run_resilient
@@ -652,6 +671,7 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
             sentinels=sentinels, ring_capacity=ring_capacity,
             fault_injector=fault_injector, checkpoint_dir=checkpoint_dir)
         res.config_name = config.name
+        res.config_source = config_source
         return res
     ctx = EdgeContext.create(graph, config, use_kernels=use_kernels,
                              sparse_edge_capacity=sparse_edge_capacity,
@@ -666,6 +686,7 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
     else:
         res = _run_host(program, ctx, state, limit)
     res.config_name = config.name
+    res.config_source = config_source
     return res
 
 
@@ -674,13 +695,15 @@ def run_batch(program: VertexProgram, graphs, config: SystemConfig,
               use_kernels: bool = False,
               sparse_edge_capacity: Optional[int] = None, autotune=None,
               max_batch: Optional[int] = None,
-              device=None) -> List[RunResult]:
+              device=None, specialize=None) -> List[RunResult]:
     """Run ``program`` on many graphs as block-diagonal packed batches
-    (``executor.py:921-1000``; the reference's ``specialize`` is not
-    ported).
+    (``executor.py:921-1000``).
 
     Graphs are grouped by padding bucket
-    (:func:`~repro_torch.core.batch.bucket_key`); each group, cut into
+    (:func:`~repro_torch.core.batch.bucket_key`) and resolved config
+    (``specialize`` resolves each graph's config on its own, as
+    :func:`run` does, so graphs with different resolved configs never
+    share a packed batch); each group, cut into
     parts of at most ``max_batch`` graphs, is packed once (cached per
     tuple of graphs) and driven to convergence by
     :func:`~repro_torch.core.batch.run_fused_batch`.  Results come back
@@ -707,18 +730,20 @@ def run_batch(program: VertexProgram, graphs, config: SystemConfig,
     if max_batch is not None and max_batch < 1:
         raise ValueError(f"max_batch must be >= 1, got {max_batch}")
     device = resolve_device(device)
+    resolved = [resolve_config(program, g, config, specialize)
+                for g in graphs]
     limit = max_iters or program.max_iters
     groups: dict = {}
     for i, g in enumerate(graphs):
-        groups.setdefault(bucket_key(g), []).append(i)
+        groups.setdefault((bucket_key(g), resolved[i][0]), []).append(i)
     results: List[Optional[RunResult]] = [None] * len(graphs)
-    for idxs in groups.values():
+    for (_, group_config), idxs in groups.items():
         step = max_batch or len(idxs)
         for lo in range(0, len(idxs), step):
             part = idxs[lo:lo + step]
             batch = get_graph_batch(tuple(graphs[i] for i in part))
             bctx = BatchedEdgeContext.create(
-                batch, config, use_kernels=use_kernels,
+                batch, group_config, use_kernels=use_kernels,
                 sparse_edge_capacity=sparse_edge_capacity,
                 autotune=autotune, device=device)
             states = [program.init(graphs[i]) if keys is None
@@ -730,6 +755,7 @@ def run_batch(program: VertexProgram, graphs, config: SystemConfig,
                       for k, v in packed.items()}
             for i, r in zip(part, run_fused_batch(program, batch, bctx,
                                                   packed, limit)):
-                r.config_name = config.name
+                r.config_name = group_config.name
+                r.config_source = resolved[i][1]
                 results[i] = r
     return results

@@ -3,11 +3,18 @@ from repro_torch.graph.structure import (ARRAY_FIELDS, Graph,
 from repro_torch.graph.generators import (powerlaw_graph, random_graph,
                                           regular_graph, rmat_batch,
                                           rmat_graph)
-from repro_torch.graph.datasets import PAPER_GRAPHS, PAPER_STATS, paper_graph
+from repro_torch.graph.datasets import (DEGREE_PROFILES, PAPER_AN,
+                                        PAPER_GRAPHS, PAPER_SOURCES,
+                                        PAPER_STATS, dataset_graph,
+                                        degree_profile, fetch_instructions,
+                                        load_real_graph, paper_graph,
+                                        real_graph_path)
 
 __all__ = [
     "ARRAY_FIELDS", "Graph", "graph_from_arrays", "validate_graph",
     "powerlaw_graph", "random_graph", "regular_graph", "rmat_graph",
     "rmat_batch",
-    "PAPER_GRAPHS", "PAPER_STATS", "paper_graph",
+    "PAPER_GRAPHS", "PAPER_STATS", "PAPER_AN", "PAPER_SOURCES",
+    "DEGREE_PROFILES", "paper_graph", "dataset_graph", "load_real_graph",
+    "real_graph_path", "degree_profile", "fetch_instructions",
 ]

@@ -984,3 +984,117 @@ def test_batch_slices_on_the_card_equal_the_cpu(cuda_device):
     assert (gi == ci).all() and (gc == cc).all() and (gd == cd).all()
     for key, want in cs.items():
         assert torch.equal(gs[key].cpu(), want), key
+
+
+# ---------------------------------------------------------------------------
+# specialization (core/specialize_learned.py) on the card
+def _skew_model(path):
+    """A model file that sends near-regular graphs to SD1 and skewed
+    ones to TG0 (both reduce through K1/K2)."""
+    from repro_torch.core import specialize_learned as sl
+    tree = {"feature": sl.FEATURES.index("degree_skew"), "threshold": 0.6,
+            "left": {"counts": [1, 0]}, "right": {"counts": [0, 1]}}
+    return sl.save_model(sl.LearnedSpecializer(
+        features=sl.FEATURES, classes=("SD1", "TG0"), tree=tree), path)
+
+
+@pytest.fixture
+def skew_model(tmp_path, monkeypatch):
+    from repro_torch.core import specialize_learned as sl
+    sl.clear_memo()
+    monkeypatch.setattr(sl, "DEFAULT_MODEL_PATH",
+                        _skew_model(tmp_path / "model.json"))
+    yield
+    sl.clear_memo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["BFS", "SSSP", "CC", "MIS", "CLR", "PR"])
+def test_learned_run_equals_the_resolved_plain_run_on_the_card(
+        cuda_device, engine_graph, skew_model, app):
+    import warnings
+    from repro_torch.core import SpecializeFallbackWarning
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", SpecializeFallbackWarning)
+        res = _cell(app, engine_graph, "DG0", cuda_device,
+                    specialize="learned")
+    assert (res.config_name, res.config_source) == ("TG0", "learned")
+    plain = _cell(app, engine_graph, res.config_name, cuda_device)
+    if app == "PR":  # K1's float atomics add in a run-dependent order
+        assert abs(res.iterations - plain.iterations) <= 1
+        torch.testing.assert_close(res.state["rank"], plain.state["rank"],
+                                   rtol=0, atol=1e-6)
+        return
+    assert res.iterations == plain.iterations
+    assert res.direction_trace == plain.direction_trace
+    for key, want in plain.state.items():
+        assert torch.equal(res.state[key], want), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["BFS", "SSSP", "CC"])
+def test_batch_never_packs_different_resolved_configs_on_the_card(
+        cuda_device, skew_model, monkeypatch, app):
+    import repro_torch.core.batch as batch_mod
+    from repro_torch.core import run_batch
+    from repro_torch.graph import regular_graph
+    # one padding bucket, (512, 4096, 256); different degree shapes
+    gs = [regular_graph(500, 4, seed=1, weighted=True),
+          powerlaw_graph(500, 2000, alpha=1.2, max_degree=60, seed=2,
+                         weighted=True),
+          regular_graph(500, 4, seed=3, weighted=True)]
+    packed = []
+    real = batch_mod.get_graph_batch
+
+    def spy(members):
+        packed.append(tuple(id(m) for m in members))
+        return real(members)
+
+    monkeypatch.setattr(batch_mod, "get_graph_batch", spy)
+    results = run_batch(REGISTRY[app](), gs, SystemConfig.from_name("DG0"),
+                        use_kernels=True, device=cuda_device,
+                        specialize="learned")
+    assert [r.config_name for r in results] == ["SD1", "TG0", "SD1"]
+    assert sorted(packed) == sorted([(id(gs[0]), id(gs[2])), (id(gs[1]),)])
+    for g, r in zip(gs, results):
+        seq = _cell(app, g, r.config_name, cuda_device)
+        assert r.config_source == "learned"
+        assert r.iterations == seq.iterations
+        for key, want in seq.state.items():
+            assert torch.equal(r.state[key], want), key
+
+
+@pytest.mark.cuda
+def test_missing_model_falls_back_to_static_partial_on_the_card(
+        cuda_device, engine_graph, tmp_path, monkeypatch):
+    from repro_torch.core import SpecializeFallbackWarning
+    from repro_torch.core import specialize_learned as sl
+    sl.clear_memo()
+    monkeypatch.setattr(sl, "DEFAULT_MODEL_PATH",
+                        str(tmp_path / "absent.json"))
+    with pytest.warns(SpecializeFallbackWarning, match="code=model_missing"):
+        res = _cell("SSSP", engine_graph, "DG0", cuda_device,
+                    specialize="learned")
+    want = sl.static_config_for(REGISTRY["SSSP"]().properties, engine_graph,
+                                partial=True)
+    assert (res.config_name, res.config_source) == (want.name,
+                                                    "static_partial")
+    plain = _cell("SSSP", engine_graph, want.name, cuda_device)
+    assert torch.equal(res.state["dist"], plain.state["dist"])
+    sl.clear_memo()
+
+
+@pytest.mark.cuda
+def test_committed_model_serves_learned_runs_on_the_card(cuda_device,
+                                                         engine_graph):
+    import warnings
+    from repro_torch.core import SpecializeFallbackWarning
+    from repro_torch.core import specialize_learned as sl
+    sl.clear_memo()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", SpecializeFallbackWarning)
+        res = _cell("BFS", engine_graph, "TG0", cuda_device,
+                    specialize="learned")
+    assert res.config_source == "learned"
+    assert res.config_name in sl.load_model(sl.DEFAULT_MODEL_PATH).classes
+    sl.clear_memo()

@@ -137,9 +137,12 @@ def test_knobs_not_ported_yet_raise(graphs, monkeypatch, tmp_path):
         assert res.outcome == "converged" and res.fault is None
         assert res.iterations == plain.iterations
         assert torch.equal(res.state["depth"], plain.state["depth"])
-    # specialization is not ported yet
-    with pytest.raises(TypeError):
+    # specialization is ported: an unknown mode raises, "static" runs
+    with pytest.raises(ValueError, match="specialize"):
         run(bfs(), g, cfg, device="cpu", specialize=1)
+    res = run(bfs(), g, cfg, device="cpu", specialize="static")
+    assert res.converged and res.config_source == "static"
+    assert res.config_name == "DD1"  # BFS traverses dynamically
 
 
 def test_plan_cache_shares_artifacts_and_keys_on_device():
