@@ -141,6 +141,41 @@ script exits non-zero:
    ``run_batch(..., specialize="learned")`` on four stand-ins of
    different shapes, each result against its graph's sequential run
    under its own resolved config.
+4g. gateway: the streaming gateway (``repro_torch.launch.serve``) with
+   the kernels.  The sequential fused runs come first (each graph of
+   each lane twice: the second, with its state's copy to the host, is a
+   serial server's service time), then the K1/K2 counts are set to 0.
+   (a) ``GraphGateway(max_batch=16, slice_len=8)`` over
+   ``rmat_batch(16, 14, 8, seed=7)`` (weighted; one bucket, 524,288
+   packed vertices and 4,194,304 edge slots) with three lanes, BFS SD1,
+   SSSP SD1 and PR TG0: one warm-up wave of every graph in every lane,
+   ``reset_stats()``, then 192 requests (64 per lane, cycling the
+   graphs) from 16 closed-loop client threads; every result equal to
+   its sequential run (exact apps bit for bit in state, iterations and
+   traces; PR to atol 1e-6, iterations +-1), every ticket converged, no
+   quarantine, no slice retried, no roster rebuilt after the warm-up;
+   p50/p99 ms, requests/s against the serial server's, occupancy,
+   slices, replays, host ms per slice (its replays and certificates
+   apart) and certificate ms per retirement.
+   One scheduling round (a slice of 16 in each lane) under the profiler
+   must show K1 and K2 (taken again up to 5 times, from the third on
+   with new program objects, whose lanes capture inside the profile);
+   its idle share.
+   (b) churn: 48 R-MAT-14 graphs through one BFS SD1 lane of 16: roster
+   rebuilds, captured graphs added, ``memory_reserved`` before and
+   after, every 8th result against its sequential run.  (c) the AMZ
+   stand-in at ``max_batch=4``: 4 requests each of BFS SD1 and PR TG0,
+   a cold wave (it builds the rosters) and a warm one.
+   (d) on the (a) pool: ``SliceNaNFault`` on one SSSP ticket (only it
+   faulted), ``SliceExceptionFault(times=1)`` (retried, all equal), a
+   persistent ``SliceExceptionFault`` on one BFS ticket (only it
+   faulted), packed-only faults that open the breaker, degrade to solo
+   and close it, ``GatewayKillFault(after_slices=2)`` with its journal
+   under ``build/`` and a fresh scheduler's ``recover`` (bit-identical),
+   and a hopeless deadline shed with ``OverloadError``.  (e)
+   ``repro_torch.benchmarks.serve`` at its pinned workload and
+   ``repro_torch.benchmarks.chaos``, writing
+   ``results/torch/BENCH_serve.json`` and ``BENCH_chaos.json``.
 5. DLRM serving: MLPerf DLRM (Criteo 1TB) at full width with every
    table capped at 16,000,000 rows (43.0 GB of float32 tables; the
    full 96.1 GB do not fit one 80 GB card), random weights from a
@@ -177,6 +212,7 @@ The full record also goes to ``--out``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
@@ -308,6 +344,20 @@ SPECIALIZE_MODES = ("static", "learned")
 SPEC_BATCH_GRAPHS = ("DCT", "OLS", "RAJ", "WNG")
 SPEC_BATCH_SCALE = 16
 SPEC_BATCH_APPS = ("BFS", "SSSP", "PR")
+#: phase 4g: the steady stream's pool (one bucket: n_q 32,768, m_q
+#: 262,144), its lanes (all with the kernels), requests per lane, client
+#: threads, roster size and slice length; the churn pool (BFS SD1); the
+#: AMZ stand-in's roster and requests per cell
+GATEWAY_GRAPHS = dict(count=16, scale=14, edge_factor=8, seed=7)
+GATEWAY_LANES = [("BFS", "SD1"), ("SSSP", "SD1"), ("PR", "TG0")]
+GATEWAY_PER_LANE = 64
+GATEWAY_CLIENTS = 16
+GATEWAY_MAX_BATCH = 16
+GATEWAY_SLICE_LEN = 8
+GATEWAY_CHURN_GRAPHS = dict(count=48, scale=14, edge_factor=8, seed=11)
+GATEWAY_AMZ_BATCH = 4
+GATEWAY_AMZ_CELLS = [("BFS", "SD1"), ("PR", "TG0")]
+GATEWAY_AMZ_REQUESTS = 4
 
 
 def log(*parts) -> None:
@@ -1959,6 +2009,442 @@ def specialize_phase(graph, dev, log_dir: Path) -> tuple:
     return record, launches, device_launches
 
 
+def _host_result(res):
+    """A result with its state copied to the host."""
+    return dataclasses.replace(res, state={k: torch.as_tensor(v).cpu()
+                                           for k, v in res.state.items()})
+
+
+def _gateway_same(app, cfg, got, want) -> None:
+    """A gateway result (host arrays, converged) against the sequential
+    fused run of its graph, as ``_batch_same``, on the host: while the
+    gateway's worker captures or certifies, the process-wide sync-debug
+    mode makes any other thread's synchronizing CUDA call raise, so the
+    sequential runs' states are copied to the host before it starts."""
+    if got.engine != "gateway" or got.outcome != "converged":
+        raise AssertionError(f"gateway {app} {cfg}: engine {got.engine}, "
+                             f"outcome {got.outcome}")
+    _batch_same(app, f"{cfg} (gateway)", _host_result(got),
+                _host_result(want))
+
+
+def _gateway_clean(what: str, snap: dict, n: int) -> None:
+    """A clean stream: every ticket converged, none quarantined, no
+    slice retried."""
+    if (snap["converged"], snap["quarantined"], snap["slice_retries"],
+            snap["faulted"]) != (n, 0, 0, 0):
+        raise AssertionError(f"gateway {what}: {json.dumps(snap)}")
+
+
+def gateway_phase(graph, dev) -> tuple:
+    """The streaming gateway on the card with the kernels: a steady
+    three-lane stream from 16 client threads against sequential fused
+    runs, one profiled scheduling round, roster churn, the AMZ stand-in,
+    the slice faults and kill -> recover, then the serve and chaos
+    harnesses.  The sequential runs come first; the K1/K2 counts are set
+    to 0 before the first gateway and read after the last fault case."""
+    import shutil
+    import threading
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.benchmarks.chaos import run_chaos_bench
+    from repro_torch.benchmarks.serve import run_serve_bench
+    from repro_torch.core import PLAN_CACHE, SystemConfig, bucket_key, run
+    from repro_torch.core.resilience import ExecutionFault
+    from repro_torch.graph import rmat_batch
+    from repro_torch.launch.serve import (ContinuousScheduler, GraphGateway,
+                                          OverloadError)
+    from repro_torch.testing import (GatewayKillFault, InjectedFault,
+                                     SimulatedProcessDeath,
+                                     SliceExceptionFault, SliceFaultInjector,
+                                     SliceNaNFault)
+
+    class PackedOnly(SliceFaultInjector):
+        """Fails ``times`` packed-roster slices (B > 1), not the solo
+        ones: the cohabitation fault the breaker routes around."""
+
+        def __init__(self, times: int):
+            self.times, self.fired = times, 0
+
+        def before_slice(self, ticket_ids):
+            if len(ticket_ids) > 1 and self.fired < self.times:
+                self.fired += 1
+                raise InjectedFault(f"packed slice of {len(ticket_ids)}")
+    record = {}
+    t0 = time.perf_counter()
+    graphs = rmat_batch(weighted=True, **GATEWAY_GRAPHS)
+    keys = {bucket_key(g) for g in graphs}
+    if len(keys) != 1:
+        raise AssertionError(f"gateway: {len(keys)} buckets, expected one")
+    lanes = [(app, cfg, REGISTRY[app](), SystemConfig.from_name(cfg))
+             for app, cfg in GATEWAY_LANES]
+
+    def host_run(program, g, config):
+        """A serial server's request: the run and its state's copy to
+        the host."""
+        res = run(program, g, config, use_kernels=True, device=dev)
+        return res, {k: v.cpu() for k, v in res.state.items()}
+
+    # the sequential fused runs every gateway result is held against, and
+    # a serial server's warm service time (run and the copy to the host)
+    want, serial_s = {}, {}
+    for app, cfg, program, config in lanes:
+        for i, g in enumerate(graphs):
+            host_run(program, g, config)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res, host = host_run(program, g, config)
+            serial_s[app, i] = time.perf_counter() - t1
+            want[app, i] = dataclasses.replace(res, state=host)
+    amz_want = {app: _host_result(run(
+        REGISTRY[app](), graph, SystemConfig.from_name(cfg),
+        use_kernels=True, device=dev)) for app, cfg in GATEWAY_AMZ_CELLS}
+    log(f"gateway: {len(graphs)} graphs bucket={keys.pop()} "
+        f"V={graphs[0].n_nodes} E={min(g.n_edges for g in graphs)}.."
+        f"{max(g.n_edges for g in graphs)}; {len(want) + len(amz_want)} "
+        f"sequential runs in {time.perf_counter() - t0:.1f} s")
+
+    # (a) the steady stream ------------------------------------------------
+    _zero_seg_counts()
+    n = GATEWAY_PER_LANE * len(lanes)
+
+    def request(i):
+        app, cfg, program, config = lanes[i % len(lanes)]
+        g = (i // len(lanes)) % len(graphs)
+        return app, cfg, program, config, g
+
+    results = [None] * n
+    errors = []
+    with GraphGateway(max_batch=GATEWAY_MAX_BATCH,
+                      slice_len=GATEWAY_SLICE_LEN, device=dev) as gw:
+        # one admission round takes the whole wave (the worker waits on
+        # the gateway's lock), so every lane's roster holds every graph
+        with gw._wake:
+            warm = [(app, cfg, i, gw.submit(program, g, config,
+                                            use_kernels=True))
+                    for app, cfg, program, config in lanes
+                    for i, g in enumerate(graphs)]
+        for app, cfg, i, t in warm:
+            _gateway_same(app, cfg, t.result(timeout=600), want[app, i])
+        warm_snap = gw.stats()
+        gw.reset_stats()
+
+        def client(k):
+            try:
+                for i in range(k, n, GATEWAY_CLIENTS):
+                    app, cfg, program, config, g = request(i)
+                    t = gw.submit(program, graphs[g], config,
+                                  use_kernels=True)
+                    results[i] = t.result(timeout=600)
+            except Exception as err:  # noqa: BLE001
+                errors.append(repr(err))
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(GATEWAY_CLIENTS)]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t1
+        snap = gw.stats()
+    if errors:
+        raise AssertionError(f"gateway clients: {errors[:3]}")
+    _gateway_clean("steady", snap, n)
+    if snap["roster_rebuilds"]:
+        raise AssertionError(f"gateway steady: {snap['roster_rebuilds']} "
+                             "roster rebuilds after the warm-up")
+    for i, res in enumerate(results):
+        app, cfg, _, _, g = request(i)
+        _gateway_same(app, cfg, res, want[app, g])
+    lat = [r.seconds for r in results]
+    serial = sum(serial_s[request(i)[0], request(i)[4]] for i in range(n))
+    slices = snap["slices"]
+    steady = dict(
+        requests=n, clients=GATEWAY_CLIENTS, wall_s=wall, rps=n / wall,
+        serial_rps=n / serial, rps_over_serial=serial / wall,
+        p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        serial_ms=serial / n * 1e3,
+        mean_occupancy=snap["mean_occupancy"], slices=slices,
+        replays=snap["replays"],
+        slice_ms=snap["slice_seconds"] / slices * 1e3,
+        replay_ms_per_slice=snap["dispatch_seconds"] / slices * 1e3,
+        host_ms_per_slice=(snap["slice_seconds"] - snap["dispatch_seconds"]
+                           - snap["certificate_seconds"]) / slices * 1e3,
+        certificate_ms=snap["certificate_seconds"]
+        / max(snap["certificates"], 1) * 1e3,
+        certificates=snap["certificates"],
+        warmup_roster_rebuilds=warm_snap["roster_rebuilds"],
+        roster_rebuilds=snap["roster_rebuilds"], stats=snap)
+    record["steady"] = steady
+    log("gateway steady: ok " + " ".join(
+        f"{k}={steady[k]}" for k in (
+            "requests", "clients", "rps", "serial_rps", "rps_over_serial",
+            "p50_ms", "p99_ms", "serial_ms", "mean_occupancy", "slices",
+            "replays", "slice_ms", "replay_ms_per_slice",
+            "host_ms_per_slice", "certificate_ms", "certificates",
+            "warmup_roster_rebuilds", "roster_rebuilds")))
+
+    # one profiled scheduling round: a slice per lane, every slot active
+    sched = gw._sched
+    device_launches = {"seg_sum": 0, "seg_minmax": 0}
+    profiles = []
+    for attempt in range(PROFILE_ATTEMPTS):
+        # late in a long process the tracer can miss the kernel nodes of
+        # a graph captured before the profile: the later attempts take
+        # new program objects, whose lanes capture anew inside it
+        fresh = attempt >= 2
+        batch_t = [(app, cfg, i, sched.submit(
+            REGISTRY[app]() if fresh else program, g, config,
+            use_kernels=True))
+            for app, cfg, program, config in lanes
+            for i, g in enumerate(graphs)]
+        prof = profile_request(
+            "gateway round (3 slices of 16"
+            + (", new captures)" if fresh else ")"), sched.poll)
+        sched.run_until_idle()
+        for app, cfg, i, t in batch_t:
+            _gateway_same(app, cfg, t.result(0), want[app, i])
+        prof["capture"] = "new" if fresh else "replayed"
+        profiles.append(prof)
+        found = _device_launches(prof)
+        if min(found.values()) > 0:
+            break
+    if min(found.values()) <= 0:
+        raise AssertionError(f"gateway: the profiled round executed "
+                             f"{found}")
+    for k, v in found.items():
+        device_launches[k] += v
+    record["profiles"] = profiles
+    log(f"gateway profiled rounds: idle_share "
+        f"{[round(p['idle_share'], 3) for p in profiles]} (the first "
+        f"replays warm graphs), device_launches={json.dumps(found)} in "
+        f"the last ({prof['capture']})")
+    del sched, gw
+    PLAN_CACHE.clear()
+    free_device_memory()
+
+    # (b) churn --------------------------------------------------------------
+    churn_graphs = rmat_batch(**GATEWAY_CHURN_GRAPHS)
+    program, config = REGISTRY["BFS"](), SystemConfig.from_name("SD1")
+    torch.cuda.synchronize()
+    execs0 = PLAN_CACHE.kinds().get("exec_fn", 0)
+    reserved0 = torch.cuda.memory_reserved(dev)
+    t1 = time.perf_counter()
+    with GraphGateway(max_batch=GATEWAY_MAX_BATCH,
+                      slice_len=GATEWAY_SLICE_LEN, device=dev) as gw:
+        tickets = [gw.submit(program, g, config, use_kernels=True)
+                   for g in churn_graphs]
+        done = [t.result(timeout=600) for t in tickets]
+        snap = gw.stats()
+    torch.cuda.synchronize()
+    churn = dict(graphs=len(churn_graphs),
+                 seconds=time.perf_counter() - t1,
+                 roster_rebuilds=snap["roster_rebuilds"],
+                 captures=PLAN_CACHE.kinds().get("exec_fn", 0) - execs0,
+                 memory_reserved_before=reserved0,
+                 memory_reserved_after=torch.cuda.memory_reserved(dev),
+                 slices=snap["slices"],
+                 mean_occupancy=snap["mean_occupancy"],
+                 p99_ms=snap["latency_p99_ms"])
+    _gateway_clean("churn", snap, len(churn_graphs))
+    for j in range(0, len(churn_graphs), BATCH_SEQ_EVERY):
+        _gateway_same("BFS", "SD1", done[j], run(
+            program, churn_graphs[j], config, use_kernels=True, device=dev))
+    record["churn"] = churn
+    log("gateway churn BFS SD1: ok " + " ".join(
+        f"{k}={v}" for k, v in churn.items()))
+    del churn_graphs, done, tickets
+    PLAN_CACHE.clear()
+    free_device_memory()
+
+    # (c) Table II size ----------------------------------------------------
+    t1 = time.perf_counter()
+    amz_cells = [(app, cfg, REGISTRY[app](), SystemConfig.from_name(cfg))
+                 for app, cfg in GATEWAY_AMZ_CELLS]
+    amz = {}
+    with GraphGateway(max_batch=GATEWAY_AMZ_BATCH,
+                      slice_len=GATEWAY_SLICE_LEN, device=dev) as gw:
+        # a cold wave builds the rosters (packing 4 copies on the host,
+        # the contexts, the captures); a warm wave replays them
+        for wave in ("cold", "warm"):
+            with gw._wake:
+                tickets = [(app, cfg, gw.submit(program, graph, config,
+                                                use_kernels=True))
+                           for app, cfg, program, config in amz_cells
+                           for _ in range(GATEWAY_AMZ_REQUESTS)]
+            for app, cfg, t in tickets:
+                _gateway_same(app, cfg, t.result(timeout=600),
+                              amz_want[app])
+            snap = gw.stats()
+            gw.reset_stats()
+            _gateway_clean(f"AMZ {wave}", snap, len(tickets))
+            amz[wave] = dict(
+                requests=len(tickets), p50_ms=snap["latency_p50_ms"],
+                p99_ms=snap["latency_p99_ms"], slices=snap["slices"],
+                replays=snap["replays"],
+                roster_rebuilds=snap["roster_rebuilds"],
+                slice_ms=snap["slice_seconds"] / snap["slices"] * 1e3,
+                replay_ms_per_slice=snap["dispatch_seconds"]
+                / snap["slices"] * 1e3,
+                certificate_ms=snap["certificate_seconds"]
+                / max(snap["certificates"], 1) * 1e3)
+    amz.update(seconds=time.perf_counter() - t1,
+               sequential_ms={a: r.seconds * 1e3
+                              for a, r in amz_want.items()})
+    record["amz"] = amz
+    log("gateway AMZ: ok " + " ".join(f"{k}={v}" for k, v in amz.items()))
+    del tickets
+    PLAN_CACHE.clear()
+    free_device_memory()
+
+    # (d) faults on the (a) pool -----------------------------------------
+    faults = {}
+
+    def scheduler(**kw):
+        return ContinuousScheduler(max_batch=GATEWAY_MAX_BATCH,
+                                   slice_len=kw.pop("slice_len",
+                                                    GATEWAY_SLICE_LEN),
+                                   device=dev, **kw)
+
+    def lane_tickets(sched, app):
+        _, cfg, program, config = next(x for x in lanes if x[0] == app)
+        return cfg, [sched.submit(program, g, config, use_kernels=True)
+                     for g in graphs]
+
+    def check(case, app, cfg, tickets, bad, code):
+        for i, t in enumerate(tickets):
+            if i == bad:
+                try:
+                    t.result(0)
+                except ExecutionFault as err:
+                    if err.code != code:
+                        raise AssertionError(f"gateway {case}: {err.code}")
+                    continue
+                raise AssertionError(f"gateway {case}: ticket {i} "
+                                     "was not quarantined")
+            _gateway_same(app, cfg, t.result(0), want[app, i])
+
+    sched = scheduler()
+    cfg, tickets = lane_tickets(sched, "SSSP")
+    sched.fault_injector = SliceNaNFault(ticket_id=tickets[1].id)
+    sched.run_until_idle()
+    check("nan", "SSSP", cfg, tickets, 1, "sentinel")
+    faults["nan"] = sched.stats.snapshot()
+
+    sched = scheduler(fault_injector=SliceExceptionFault(times=1))
+    cfg, tickets = lane_tickets(sched, "BFS")
+    sched.run_until_idle()
+    check("transient", "BFS", cfg, tickets, None, None)
+    faults["transient"] = sched.stats.snapshot()
+    try:
+        sched.submit(lanes[0][2], graphs[0], lanes[0][3], use_kernels=True,
+                     deadline_s=1e-9)
+        raise AssertionError("gateway: a hopeless deadline was admitted")
+    except OverloadError as err:
+        if err.code != "overload_shed":
+            raise
+        faults["shed"] = err.detail
+
+    sched = scheduler()
+    cfg, tickets = lane_tickets(sched, "BFS")
+    sched.fault_injector = SliceExceptionFault(ticket_id=tickets[2].id)
+    sched.run_until_idle()
+    check("persistent", "BFS", cfg, tickets, 2, "slice_exception")
+    faults["persistent"] = sched.stats.snapshot()
+
+    sched = scheduler(slice_len=1, breaker_threshold=2, breaker_cooldown=1,
+                      fault_injector=PackedOnly(3))
+    cfg, tickets = lane_tickets(sched, "SSSP")
+    sched.run_until_idle()
+    check("breaker", "SSSP", cfg, tickets, None, None)
+    faults["breaker"] = sched.stats.snapshot()
+
+    kill_dir = ROOT / "build" / "gateway_journal"
+    shutil.rmtree(kill_dir, ignore_errors=True)
+    # slices of 2 iterations: the kill lands in mid-run of both lanes
+    sched = scheduler(slice_len=2, journal_dir=str(kill_dir),
+                      fault_injector=GatewayKillFault(after_slices=2))
+    killed = [t for app in ("BFS", "SSSP")
+              for t in lane_tickets(sched, app)[1]]
+    try:
+        sched.run_until_idle()
+        raise AssertionError("gateway: the kill never fired")
+    except SimulatedProcessDeath:
+        pass
+    t1 = time.perf_counter()
+    fresh = scheduler(slice_len=2)
+    recovered = fresh.recover(str(kill_dir))
+    resumed = sum(t._restore is not None for t in recovered)
+    fresh.run_until_idle()
+    recover_s = time.perf_counter() - t1
+    by_jid = {t.jid: t.result(0) for t in killed if t.done()}
+    by_jid.update({t.jid: t.result(0) for t in recovered})
+    for j, t in enumerate(killed):
+        app = ("BFS", "SSSP")[j // len(graphs)]
+        _gateway_same(app, "SD1", by_jid[t.jid],
+                      want[app, j % len(graphs)])
+    if not resumed:
+        raise AssertionError("gateway kill: no ticket resumed from a "
+                             "checkpoint")
+    faults["kill"] = dict(recovered=len(recovered), resumed=resumed,
+                          seconds=recover_s, stats=fresh.stats.snapshot())
+    shutil.rmtree(kill_dir, ignore_errors=True)
+    expect = {"nan": dict(quarantined=1, sentinel_trips=1, faulted=1),
+              "transient": dict(quarantined=0, faulted=0),
+              "persistent": dict(quarantined=1, faulted=1),
+              "breaker": dict(breaker_opens=1, breaker_closes=1,
+                              quarantined=0)}
+    for case, want_counts in expect.items():
+        got = {k: faults[case][k] for k in want_counts}
+        if got != want_counts:
+            raise AssertionError(f"gateway {case}: {got}")
+    if faults["transient"]["slice_retries"] < 1 or \
+            faults["breaker"]["solo_degraded_slices"] < 1:
+        raise AssertionError(f"gateway faults: {json.dumps(faults)}")
+    record["faults"] = faults
+    for case in ("nan", "transient", "persistent", "breaker"):
+        s = faults[case]
+        log(f"gateway fault {case}: ok " + " ".join(
+            f"{k}={s[k]}" for k in (
+                "converged", "faulted", "quarantined", "sentinel_trips",
+                "slice_retries", "breaker_opens", "breaker_probes",
+                "breaker_closes", "solo_degraded_slices", "slices")))
+    log(f"gateway shed: ok {json.dumps(faults['shed'])}")
+    log(f"gateway kill -> recover: ok recovered={len(recovered)} "
+        f"resumed_from_checkpoint={faults['kill']['resumed']} "
+        f"seconds={recover_s:.3f}")
+    launches = _seg_counts()
+    log(f"gateway path launches: {json.dumps(launches)}; device launches "
+        f"(profiled round): {json.dumps(device_launches)}")
+    if min(launches.values()) <= 0:
+        raise AssertionError("gateway path: a K1/K2 wrapper never launched")
+    del sched, fresh, killed, recovered
+    PLAN_CACHE.clear()
+    free_device_memory()
+
+    # (e) the harnesses ------------------------------------------------------
+    t1 = time.perf_counter()
+    bench = run_serve_bench(device=dev)
+    log(f"serve benchmark: {time.perf_counter() - t1:.1f} s "
+        f"{json.dumps(bench['modes'])}")
+    t1 = time.perf_counter()
+    chaos = run_chaos_bench(device=dev)
+    log(f"chaos benchmark: {time.perf_counter() - t1:.1f} s "
+        f"{json.dumps(chaos['summary'])}")
+    s = chaos["summary"]
+    if not (s["core_agrees"] and chaos["gateway"]["n_bit_identical"]
+            == len(chaos["gateway"]["apps"]) and s["overload_contained"]):
+        raise AssertionError(f"chaos: {json.dumps(s)}")
+    record["serve_bench"] = dict(modes=bench["modes"],
+                                 summary=bench["summary"])
+    record["chaos_bench"] = dict(summary=s, core=chaos["core"],
+                                 gateway=chaos["gateway"],
+                                 overload=chaos["overload"])
+    PLAN_CACHE.clear()
+    free_device_memory()
+    return record, launches, device_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "results" / "torch" /
@@ -2047,6 +2533,13 @@ def main() -> int:
         graph, dev, out.parent)
     clock.lap("4f specialize")
     specialized["seconds"] = clock.seconds["4f specialize"]
+    PLAN_CACHE.clear()
+    free_device_memory()
+
+    # 4g. the streaming gateway
+    gateway, gw_launches, gw_device = gateway_phase(graph, dev)
+    clock.lap("4g gateway")
+    gateway["seconds"] = clock.seconds["4g gateway"]
     del graph
     PLAN_CACHE.clear()
     free_device_memory()
@@ -2075,6 +2568,8 @@ def main() -> int:
                 specialized["matrix"]["kernel_launches"][row["kernel"]]
             row["specialize_launches"] = spec_launches[row["kernel"]]
             row["specialize_device_launches"] = spec_device[row["kernel"]]
+            row["gateway_launches"] = gw_launches[row["kernel"]]
+            row["gateway_device_launches"] = gw_device[row["kernel"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
@@ -2091,6 +2586,9 @@ def main() -> int:
                                    specialize=specialized,
                                    specialize_launches=spec_launches,
                                    specialize_device_launches=spec_device,
+                                   gateway=gateway,
+                                   gateway_launches=gw_launches,
+                                   gateway_device_launches=gw_device,
                                    dlrm=dlrm, attention=attn,
                                    phase_seconds=clock.seconds), indent=1))
     # 7. the kernel table, then the last line

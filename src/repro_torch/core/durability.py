@@ -24,8 +24,9 @@ keeps ``keep`` generations and always the oldest (the cold-restart
 floor) and the newest (the resume point).
 
 The run fingerprint's :func:`graph_fingerprint` and the key's
-serialization are the port's copies of ``launch/journal.py:71-107``; the
-port's key is a ``torch.Generator``, serialized by its state.
+serialization (:func:`_serialize_key`, :func:`_deserialize_key`) are the
+port's copies of ``launch/journal.py:71-107``; the port's key is a
+``torch.Generator``, serialized by its state.
 """
 from __future__ import annotations
 
@@ -86,6 +87,22 @@ def _serialize_key(key) -> Optional[dict]:
                         f"{type(key).__name__}")
     return {"generator": key.device.type,
             "state": key.get_state().numpy().tobytes().hex()}
+
+
+def _deserialize_key(rec: Optional[dict]) -> Optional[torch.Generator]:
+    """The ``torch.Generator`` that :func:`_serialize_key` recorded, in the
+    state it had then (``launch/journal.py:104``); None for None.  A
+    record of the reference's JAX key (``dtype``/``data``) raises
+    ``ValueError``: ``jax.random`` has no torch counterpart."""
+    if rec is None:
+        return None
+    if "generator" not in rec:
+        raise ValueError("a JAX PRNG key record cannot be rebuilt as a "
+                         f"torch.Generator: {sorted(rec)}")
+    key = torch.Generator(device=rec["generator"])
+    key.set_state(torch.frombuffer(bytearray.fromhex(rec["state"]),
+                                   dtype=torch.uint8))
+    return key
 
 
 def _encode_payload(cp: Checkpoint, fingerprint: Optional[dict]) -> bytes:

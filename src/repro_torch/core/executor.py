@@ -498,8 +498,13 @@ class RunResult:
     #: blocking device-to-host reads inside the timed loop (the fused
     #: engine: one poll of ``done`` per launch).
     host_syncs: int = 0
-    #: "converged" | "iter_limit" | "faulted" (the last only from the
-    #: resilience layer).
+    #: True when a gateway request's deadline expired before
+    #: convergence (:mod:`repro_torch.launch.serve`): ``state`` is then
+    #: the state after its last completed slice.  False for ``run`` and
+    #: ``run_batch``.
+    timed_out: bool = False
+    #: "converged" | "iter_limit" | "timed_out" | "faulted" (the last
+    #: only from the resilience layer).
     outcome: Optional[str] = None
     #: name of the config this run executed under.
     config_name: Optional[str] = None
@@ -522,7 +527,9 @@ class RunResult:
 
     def __post_init__(self):
         if self.outcome is None:
-            self.outcome = "converged" if self.converged else "iter_limit"
+            self.outcome = ("converged" if self.converged else
+                            "timed_out" if self.timed_out else
+                            "iter_limit")
 
     @property
     def sparse_iterations(self) -> Optional[int]:

@@ -143,8 +143,9 @@ class CheckpointRing:
 
 
 class FaultInjector:
-    """Injection points of :func:`run_resilient` for the seeded fault
-    harness (:mod:`repro_torch.testing.faults`).  The base is a no-op;
+    """Injection points of :func:`run_resilient` and of the gateway's
+    slices (:mod:`repro_torch.launch.serve`) for the seeded fault harness
+    (:mod:`repro_torch.testing.faults`).  The base is a no-op;
     ``knob_overrides`` forces execution knobs."""
     knob_overrides: dict = {}
 
@@ -156,6 +157,15 @@ class FaultInjector:
 
     def perturb(self, it: int, state, checkpoint_state) -> Optional[Any]:
         """After a segment: a corrupted copy of the host state, or None."""
+        return None
+
+    # gateway-side hooks (``resilience.py:189-195``)
+    def before_slice(self, ticket_ids: List[int]) -> None:
+        """Before a gateway slice dispatch; raise to fail the slice."""
+
+    def perturb_slot(self, ticket_id: int, state) -> Optional[Any]:
+        """After a gateway slice: a corrupted copy of one slot's host
+        state, or None."""
         return None
 
 

@@ -1,8 +1,8 @@
 from repro_torch.graph.structure import (ARRAY_FIELDS, Graph,
                                          graph_from_arrays, validate_graph)
-from repro_torch.graph.generators import (powerlaw_graph, random_graph,
-                                          regular_graph, rmat_batch,
-                                          rmat_graph)
+from repro_torch.graph.generators import (grid_graph, powerlaw_graph,
+                                          random_graph, regular_graph,
+                                          rmat_batch, rmat_graph)
 from repro_torch.graph.datasets import (DEGREE_PROFILES, PAPER_AN,
                                         PAPER_GRAPHS, PAPER_SOURCES,
                                         PAPER_STATS, dataset_graph,
@@ -12,8 +12,8 @@ from repro_torch.graph.datasets import (DEGREE_PROFILES, PAPER_AN,
 
 __all__ = [
     "ARRAY_FIELDS", "Graph", "graph_from_arrays", "validate_graph",
-    "powerlaw_graph", "random_graph", "regular_graph", "rmat_graph",
-    "rmat_batch",
+    "grid_graph", "powerlaw_graph", "random_graph", "regular_graph",
+    "rmat_graph", "rmat_batch",
     "PAPER_GRAPHS", "PAPER_STATS", "PAPER_AN", "PAPER_SOURCES",
     "DEGREE_PROFILES", "paper_graph", "dataset_graph", "load_real_graph",
     "real_graph_path", "degree_profile", "fetch_instructions",

@@ -11,8 +11,8 @@ import numpy as np
 
 from repro_torch.graph.structure import Graph
 
-__all__ = ["regular_graph", "powerlaw_graph", "random_graph", "rmat_graph",
-           "rmat_batch"]
+__all__ = ["regular_graph", "powerlaw_graph", "grid_graph", "random_graph",
+           "rmat_graph", "rmat_batch"]
 
 
 def _finish(src, dst, n, rng, weighted, block_size):
@@ -73,6 +73,20 @@ def powerlaw_graph(n: int, n_edges: int, alpha: float = 2.1,
         deg = deg[np.argsort(perm, kind="stable")]
     src = np.repeat(np.arange(n, dtype=np.int64), deg)
     dst = _draw_targets(src, n, locality, rng, block_size)
+    return _finish(src, dst, n, rng, weighted, block_size)
+
+
+def grid_graph(side: int, seed: int = 0, weighted: bool = False,
+               block_size: int = 256) -> Graph:
+    """``side`` x ``side`` 2D grid (``generators.py:101``): right and down
+    neighbours, degree at most 4, very regular, local along one axis."""
+    rng = np.random.default_rng(seed)
+    n = side * side
+    idx = np.arange(n, dtype=np.int64)
+    right = idx[(idx % side) != side - 1]
+    down = idx[idx < n - side]
+    src = np.concatenate([right, down])
+    dst = np.concatenate([right + 1, down + side])
     return _finish(src, dst, n, rng, weighted, block_size)
 
 

@@ -25,11 +25,18 @@ import subprocess
 from pathlib import Path
 from typing import List, Tuple
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "build_key", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "KernelBuildError", "build",
+           "build_key", "load"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel library that could not be built or opened.  Callers that
+    contain execution faults (the gateway's slices) let it through: a
+    missing kernel is not a fault of one request."""
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -69,7 +76,7 @@ def build(source: Path) -> Tuple[Path, str]:
 
     Returns the library's path and the compiler's report (registers and
     shared memory per kernel; empty when the library was already there).
-    Raises ``RuntimeError`` when ``nvcc`` is missing or fails.
+    Raises :class:`KernelBuildError` when ``nvcc`` is missing or fails.
     """
     source = Path(source)
     lib = BUILD_DIR / f"{source.stem}-{build_key(source)}.so"
@@ -77,15 +84,16 @@ def build(source: Path) -> Tuple[Path, str]:
         return lib, ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(nvcc).exists():
-        raise RuntimeError(f"nvcc not found: the CUDA kernels of "
-                           f"{source.name} cannot be built")
+        raise KernelBuildError(f"nvcc not found: the CUDA kernels of "
+                               f"{source.name} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} with code "
-                           f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
+        raise KernelBuildError(
+            f"nvcc failed on {source.name} with code "
+            f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib, proc.stdout + proc.stderr
 
@@ -93,4 +101,8 @@ def build(source: Path) -> Tuple[Path, str]:
 @functools.lru_cache(maxsize=None)
 def load(source: Path) -> ctypes.CDLL:
     """The built library of ``source``, opened once per process."""
-    return ctypes.CDLL(str(build(source)[0]))
+    path = build(source)[0]
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as err:
+        raise KernelBuildError(f"cannot open {path.name}: {err}") from err

@@ -1,7 +1,6 @@
 """Seeded fault injectors for the resilience layer.
 
-Counterpart of the core half of ``repro.testing.faults``
-(``faults.py:54-262``, ``:340-353``).  Each injector subclasses
+Counterpart of ``repro.testing.faults``.  Each injector subclasses
 :class:`repro_torch.core.resilience.FaultInjector` and corrupts exactly
 one thing, deterministically (a ``numpy`` Generator seeded per
 instance, drawing on host snapshots exactly as the reference's do), at a
@@ -28,12 +27,16 @@ mode          what it does
 ``once=True`` (the default of the state perturbations) fires a mode a
 single time, so the re-execution after a rollback is clean.
 :class:`ProcessKillFault` raises :class:`SimulatedProcessDeath`, a
-``BaseException`` that no retry net catches.  The gateway's slice
-injectors wait for the gateway's port.
+``BaseException`` that no retry net catches.
+
+Gateway-side injectors (``faults.py:264-334``: :class:`SliceExceptionFault`,
+:class:`SliceNaNFault`, :class:`GatewayKillFault`) target the slices of a
+continuous-batching lane (:mod:`repro_torch.launch.serve`): recovery must
+quarantine only the offending slot, or come back from the journal.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -42,7 +45,8 @@ from repro_torch.core.resilience import FaultInjector
 __all__ = ["InjectedFault", "SimulatedProcessDeath", "NaNFault",
            "BitFlipFault", "StaleUpdateFault", "RunnerExceptionFault",
            "SparseOverflowFault", "CompileFault", "ProcessKillFault",
-           "FAULT_MODES", "make_fault"]
+           "SliceFaultInjector", "SliceExceptionFault", "SliceNaNFault",
+           "GatewayKillFault", "FAULT_MODES", "make_fault"]
 
 
 class InjectedFault(RuntimeError):
@@ -249,6 +253,82 @@ class ProcessKillFault(FaultInjector):
         if self.point == "after_segment":
             self._maybe_kill(it)
         return None
+
+
+# ----------------------------------------------------------------------
+# gateway-side (continuous-batching slice) injectors
+
+
+class SliceFaultInjector(FaultInjector):
+    """Marker base for injectors targeting gateway slices."""
+
+
+class SliceExceptionFault(SliceFaultInjector):
+    """Fail every slice dispatch whose roster holds ``ticket_id`` (the
+    solo isolation retry included, so the slot can only be
+    quarantined).  With ``ticket_id=None``, fail the first ``times``
+    slice dispatches outright."""
+
+    def __init__(self, ticket_id: Optional[int] = None,
+                 times: Optional[int] = None):
+        self.ticket_id = ticket_id
+        self.times = times
+        self.fired = 0
+
+    def before_slice(self, ticket_ids: List[int]):
+        if self.ticket_id is not None and self.ticket_id not in ticket_ids:
+            return
+        if self.times is not None and self.fired >= self.times:
+            return
+        self.fired += 1
+        raise InjectedFault(
+            f"injected slice failure (tickets={ticket_ids})")
+
+
+class SliceNaNFault(SliceFaultInjector):
+    """Corrupt one ticket's unpacked state with NaN after a slice: the
+    per-slot sentinel must quarantine exactly that slot."""
+
+    def __init__(self, ticket_id: int, once: bool = True):
+        self.ticket_id = ticket_id
+        self.once = once
+        self.fired = 0
+
+    def perturb_slot(self, ticket_id, state):
+        if ticket_id != self.ticket_id or (self.once and self.fired):
+            return None
+        floats = _array_items(state, float_only=True)
+        if not floats:
+            return None
+        key, _ = max(floats, key=lambda kv: kv[1].size)
+        out = _copy_state(state)
+        out[key].reshape(-1)[:1] = np.nan
+        self.fired += 1
+        return out
+
+
+class GatewayKillFault(SliceFaultInjector):
+    """Kill the gateway before its ``after_slices + 1``-th slice dispatch
+    (counted across lanes) with :class:`SimulatedProcessDeath`: rosters,
+    parked slots and queues die with it, and recovery must come from the
+    write-ahead journal and the per-ticket checkpoint stores alone."""
+
+    def __init__(self, after_slices: int = 2, times: Optional[int] = 1):
+        self.after_slices = after_slices
+        self.times = times
+        self.fired = 0
+        self._slices = 0
+
+    def before_slice(self, ticket_ids: List[int]):
+        self._slices += 1
+        if self._slices <= self.after_slices:
+            return
+        if self.times is not None and self.fired >= self.times:
+            return
+        self.fired += 1
+        raise SimulatedProcessDeath(
+            f"simulated gateway death before slice {self._slices} "
+            f"(tickets={ticket_ids})")
 
 
 #: mode name -> injector factory (the fault-matrix test iterates this)

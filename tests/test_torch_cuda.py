@@ -1098,3 +1098,132 @@ def test_committed_model_serves_learned_runs_on_the_card(cuda_device,
     assert res.config_source == "learned"
     assert res.config_name in sl.load_model(sl.DEFAULT_MODEL_PATH).classes
     sl.clear_memo()
+
+
+# ---------------------------------------------------------------------------
+# the streaming gateway (launch/serve.py) on the card
+def _gateway_pool(n=8):
+    from repro_torch.graph import rmat_batch
+    return rmat_batch(n, 8, seed=3, weighted=True)
+
+
+def _gateway_same(app, got, want):
+    """A gateway result (host arrays) against a sequential fused run on
+    the card: bit for bit, PR to atol 1e-6 with iterations +-1 (K1's
+    float atomics)."""
+    assert got.engine == "gateway" and got.converged
+    if app == "PR":
+        assert abs(got.iterations - want.iterations) <= 1
+        torch.testing.assert_close(torch.from_numpy(got.state["rank"]),
+                                   want.state["rank"].cpu(), rtol=0,
+                                   atol=1e-6)
+        return
+    assert got.iterations == want.iterations
+    assert got.direction_trace == want.direction_trace
+    assert got.occupancy_trace == want.occupancy_trace
+    for key, v in want.state.items():
+        assert np.array_equal(got.state[key], v.cpu().numpy()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ["SD1", "TG0"])
+@pytest.mark.parametrize("app", ["BFS", "SSSP", "CC", "PR"])
+def test_gateway_on_the_card_equals_sequential_fused_runs(cuda_device, app,
+                                                          cfg):
+    from repro_torch.launch.serve import ContinuousScheduler
+    from repro_torch.kernels.segment_reduce import seg_minmax, seg_sum
+    graphs = _gateway_pool()
+    program, config = REGISTRY[app](), SystemConfig.from_name(cfg)
+    want = [run(program, g, config, use_kernels=True, device=cuda_device)
+            for g in graphs]
+    launches = seg_sum.launches + seg_minmax.launches
+    sched = ContinuousScheduler(max_batch=4, slice_len=3,
+                                device=cuda_device)
+    first = [sched.submit(program, g, config, use_kernels=True)
+             for g in graphs[:5]]
+    sched.poll()                        # a cohort in flight, then joiners
+    rest = [sched.submit(program, g, config, use_kernels=True)
+            for g in graphs[5:]]
+    sched.run_until_idle()
+    for t, w in zip(first + rest, want):
+        _gateway_same(app, t.result(0), w)
+    s = sched.stats
+    assert s.quarantined == s.slice_retries == s.sentinel_trips == 0
+    assert s.converged == len(graphs) and s.replays >= s.slices
+    assert seg_sum.launches + seg_minmax.launches > launches
+
+
+@pytest.mark.cuda
+def test_gateway_clients_on_threads_while_rosters_capture(cuda_device):
+    """8 client threads submit to two lanes while the worker captures
+    new rosters (and runs the certificates under the sync-debug mode):
+    no error, every result equal to its sequential run."""
+    import threading
+    from repro_torch.launch.serve import GraphGateway
+    graphs = _gateway_pool(16)
+    cells = [(REGISTRY["BFS"](), SystemConfig.from_name("SD1"), "BFS"),
+             (REGISTRY["SSSP"](), SystemConfig.from_name("TG0"), "SSSP")]
+    want = {(a, i): run(p, g, c, use_kernels=True, device=cuda_device)
+            for p, c, a in cells for i, g in enumerate(graphs)}
+    torch.cuda.synchronize()
+    results, errors = {}, []
+    with GraphGateway(max_batch=4, slice_len=4,
+                      device=cuda_device) as gw:
+        def client(k):
+            try:
+                for j in range(4):
+                    i = (4 * k + j) % len(graphs)
+                    p, c, a = cells[(k + j) % 2]
+                    t = gw.submit(p, graphs[i], c, use_kernels=True)
+                    results[(k, j)] = (a, i, t.result(timeout=300))
+            except Exception as err:  # noqa: BLE001
+                errors.append(err)
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not any(th.is_alive() for th in threads)
+        snap = gw.stats()
+    assert not errors, errors
+    assert len(results) == 32 and snap["converged"] == 32
+    assert snap["roster_rebuilds"] > 2
+    assert snap["quarantined"] == snap["slice_retries"] == 0
+    for a, i, res in results.values():
+        _gateway_same(a, res, want[(a, i)])
+
+
+@pytest.mark.cuda
+def test_gateway_kill_and_recover_on_the_card(cuda_device, tmp_path):
+    from repro_torch.launch.serve import ContinuousScheduler
+    from repro_torch.testing import GatewayKillFault, SimulatedProcessDeath
+    graphs = _gateway_pool(4)
+    cells = [(REGISTRY[a](), SystemConfig.from_name(c))
+             for a, c in (("BFS", "SD1"), ("SSSP", "SD1"), ("CC", "TG0"))]
+
+    def stream(**kw):
+        sched = ContinuousScheduler(max_batch=2, slice_len=2,
+                                    device=cuda_device, **kw)
+        return [sched.submit(p, graphs[i % 4], c, use_kernels=True)
+                for i, (p, c) in enumerate(cells * 3)], sched
+
+    clean_t, clean = stream()
+    clean.run_until_idle()
+    tickets, sched = stream(journal_dir=str(tmp_path),
+                            fault_injector=GatewayKillFault(after_slices=3))
+    with pytest.raises(SimulatedProcessDeath):
+        sched.run_until_idle()
+    fresh = ContinuousScheduler(max_batch=2, slice_len=2,
+                                device=cuda_device)
+    recovered = fresh.recover(str(tmp_path))
+    assert any(t._restore is not None for t in recovered)
+    fresh.run_until_idle()
+    by_jid = {t.jid: t.result(0) for t in tickets if t.done()}
+    by_jid.update({t.jid: t.result(0) for t in recovered})
+    for want_t, t in zip(clean_t, tickets):
+        want, got = want_t.result(0), by_jid[t.jid]
+        assert got.converged and got.iterations == want.iterations
+        assert got.direction_trace == want.direction_trace
+        for key, v in want.state.items():
+            assert np.array_equal(got.state[key], v), key

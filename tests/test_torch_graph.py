@@ -47,6 +47,8 @@ GENERATORS = {
                                                block_size=32)),
     "rmat": ("rmat_graph", (8,), dict(seed=4, weighted=True,
                                       block_size=32)),
+    "grid": ("grid_graph", (7,), dict(seed=0, weighted=True)),
+    "grid_blocked": ("grid_graph", (12,), dict(seed=3, block_size=32)),
 }
 
 
