@@ -66,9 +66,10 @@ script exits non-zero:
    independent and maximal, CLR proper).  BFS, SSSP and PR also run
    with ``use_kernels=False`` (plain scatter reductions) for
    comparison.
-4b. dispatch: ``repro_torch.benchmarks.dispatch`` at its pinned
-   workload (R-MAT scale 10, BFS, 18 configs x both engines, best of
-   10; writes ``results/torch/BENCH_dispatch.json``), then the sweep of
+4b. dispatch: ``python -m repro_torch.benchmarks.dispatch`` in a
+   subprocess at its pinned workload (R-MAT scale 10, BFS, 18 configs x
+   both engines, best of 10; writes ``results/torch/BENCH_dispatch.json``,
+   log ``dispatch.log`` beside ``--out``), then the sweep of
    guarded steps per graph, K in (1, 4, 8, 16, 32): the fused engine's
    µs per iteration on five configs of that workload and its seconds
    for PR TG0 and BFS DD1 on the AMZ stand-in.  Profiled runs (device
@@ -173,9 +174,30 @@ script exits non-zero:
    and close it, ``GatewayKillFault(after_slices=2)`` with its journal
    under ``build/`` and a fresh scheduler's ``recover`` (bit-identical),
    and a hopeless deadline shed with ``OverloadError``.  (e)
-   ``repro_torch.benchmarks.serve`` at its pinned workload and
+   ``python -m repro_torch.benchmarks.serve`` in a subprocess at its
+   pinned workload (log ``serve.log``) and
    ``repro_torch.benchmarks.chaos``, writing
    ``results/torch/BENCH_serve.json`` and ``BENCH_chaos.json``.
+4h. the paper's harnesses, the autotune benchmark and the perf gate, each
+   ``python -m repro_torch.benchmarks.<name>`` in a subprocess with
+   ``PYTHONHASHSEED=0`` (output in ``<name>.log`` beside ``--out``):
+   ``table2`` (section (a) equal to the reference's, pinned here in
+   ``TABLE2_PINNED``), ``fig5 --scale 1`` (every app on the six Table II
+   stand-ins at Table II's own sizes, the reference's configs per app,
+   best of 3 on the fused engine; every cell converged, every ``D*``
+   cell with a direction trace), ``table5 --scale 1`` ((a) must read
+   36/36; (b) prints the deployed hits and mean gap), ``fig6``,
+   ``autotune`` at its pinned workloads (BFS in all 18 configs with
+   K1/K2 under ``autotune="off"`` and ``"measure"``: its K1/K2 wrapper
+   calls, counted from 0 in its own process, must both be > 0, every
+   ``measure`` state must equal its ``off`` state bit for bit, and both
+   must equal a run of the plain version, ``use_kernels=False``, on the
+   card bit for bit),
+   writing ``results/torch/{table2,fig5,table5,fig6}.json`` and
+   ``BENCH_autotune.json``; last, ``repro_torch.benchmarks.compare``
+   over every ``results/torch/BENCH_*.json`` this run wrote against
+   ``results/torch/baselines/`` (per-metric medians of three card
+   runs), which must exit 0.
 5. DLRM serving: MLPerf DLRM (Criteo 1TB) at full width with every
    table capped at 16,000,000 rows (43.0 GB of float32 tables; the
    full 96.1 GB do not fit one 80 GB card), random weights from a
@@ -270,9 +292,7 @@ FLOAT_APPS = {"PR": dict(rtol=0.0, atol=1e-6),
               "BC": dict(rtol=1e-5, atol=1e-6)}
 #: MIS and CLR draw their priorities from a generator of this seed
 PRIORITY_SEED = {"MIS": 16, "CLR": 17}
-#: the dispatch benchmark's best-of repeats, and the guarded steps per
-#: graph (K) of the sweep
-DISPATCH_REPEATS = 10
+#: the guarded steps per graph (K) of the sweep
 SWEEP_STEPS = (1, 4, 8, 16, 32)
 #: the sweep's grid: edges per chunk, threads per CTA
 SWEEP_CHUNK_E = (2048, 4096, 8192, 16384)
@@ -358,6 +378,18 @@ GATEWAY_CHURN_GRAPHS = dict(count=48, scale=14, edge_factor=8, seed=11)
 GATEWAY_AMZ_BATCH = 4
 GATEWAY_AMZ_CELLS = [("BFS", "SD1"), ("PR", "TG0")]
 GATEWAY_AMZ_REQUESTS = 4
+#: phase 4h: Fig. 5 at Table II's own sizes, and section (a) of Table II
+#: as the reference's ``benchmarks/table2.py`` computes it from the
+#: published statistics (published; computed from published)
+FIG5_SCALE = 1
+TABLE2_PINNED = {
+    "AMZ": ((1855.178, "H", 0.16, "M", 0.0, "L"), (1855.178, "H", 0.1578, "M")),
+    "DCT": ((60.078, "M", 0.359, "M", 0.083, "M"), (60.085, "M", 0.3593, "M")),
+    "EML": ((287.272, "H", 0.053, "L", 1.0, "H"), (287.272, "H", 0.0529, "L")),
+    "OLS": ((200.898, "M", 0.445, "H", 0.0, "L"), (200.898, "M", 0.4452, "H")),
+    "RAJ": ((47.869, "L", 0.594, "H", 0.617, "H"), (47.869, "L", 0.5941, "H")),
+    "WNG": ((79.458, "M", 0.0051, "L", 0.0, "L"), (79.198, "M", 0.0051, "L")),
+}
 
 
 def log(*parts) -> None:
@@ -1199,15 +1231,20 @@ def main_path(graph, dev) -> tuple:
     return record, launches, device_launches
 
 
-def dispatch_phase(graph, dev) -> dict:
+def dispatch_phase(graph, dev, log_dir: Path) -> dict:
     """The dispatch benchmark at its pinned workload, then the sweep of
-    guarded steps per graph (K) on it and on the AMZ stand-in."""
+    guarded steps per graph (K) on it and on the AMZ stand-in.  The
+    benchmark runs in a process of its own, as the gate's other timed
+    harnesses do: run inside this process on the H100, its geomean moved
+    -26 to +35 % between runs, in a process of its own -10 to +11 %."""
     from repro_torch.algorithms import REGISTRY
-    from repro_torch.benchmarks.dispatch import run_dispatch
+    from repro_torch.benchmarks.dispatch import OUT as DISPATCH_OUT
     from repro_torch.core import SystemConfig, capture, run
     from repro_torch.graph import rmat_graph
-    record = dict(benchmark=run_dispatch(repeats=DISPATCH_REPEATS,
-                                         device=dev))
+    seconds = _bench_subprocess("repro_torch.benchmarks.dispatch", [],
+                                log_dir / "dispatch.log")
+    record = dict(benchmark=json.loads(DISPATCH_OUT.read_text()),
+                  benchmark_seconds=seconds)
     for cfg, cell in record["benchmark"]["configs"].items():
         log(f"dispatch {cfg}: host_us_per_iteration="
             f"{cell['host']['us_per_iteration']:.1f} fused_us_per_iteration="
@@ -2036,18 +2073,19 @@ def _gateway_clean(what: str, snap: dict, n: int) -> None:
         raise AssertionError(f"gateway {what}: {json.dumps(snap)}")
 
 
-def gateway_phase(graph, dev) -> tuple:
+def gateway_phase(graph, dev, log_dir: Path) -> tuple:
     """The streaming gateway on the card with the kernels: a steady
     three-lane stream from 16 client threads against sequential fused
     runs, one profiled scheduling round, roster churn, the AMZ stand-in,
     the slice faults and kill -> recover, then the serve and chaos
-    harnesses.  The sequential runs come first; the K1/K2 counts are set
+    harnesses (serve in a process of its own, as the gate's other timed
+    harnesses).  The sequential runs come first; the K1/K2 counts are set
     to 0 before the first gateway and read after the last fault case."""
     import shutil
     import threading
     from repro_torch.algorithms import REGISTRY
     from repro_torch.benchmarks.chaos import run_chaos_bench
-    from repro_torch.benchmarks.serve import run_serve_bench
+    from repro_torch.benchmarks.serve import OUT as SERVE_OUT
     from repro_torch.core import PLAN_CACHE, SystemConfig, bucket_key, run
     from repro_torch.core.resilience import ExecutionFault
     from repro_torch.graph import rmat_batch
@@ -2423,10 +2461,10 @@ def gateway_phase(graph, dev) -> tuple:
     free_device_memory()
 
     # (e) the harnesses ------------------------------------------------------
-    t1 = time.perf_counter()
-    bench = run_serve_bench(device=dev)
-    log(f"serve benchmark: {time.perf_counter() - t1:.1f} s "
-        f"{json.dumps(bench['modes'])}")
+    serve_s = _bench_subprocess("repro_torch.benchmarks.serve", [],
+                                log_dir / "serve.log")
+    bench = json.loads(SERVE_OUT.read_text())
+    log(f"serve benchmark: {serve_s:.1f} s {json.dumps(bench['modes'])}")
     t1 = time.perf_counter()
     chaos = run_chaos_bench(device=dev)
     log(f"chaos benchmark: {time.perf_counter() - t1:.1f} s "
@@ -2443,6 +2481,141 @@ def gateway_phase(graph, dev) -> tuple:
     PLAN_CACHE.clear()
     free_device_memory()
     return record, launches, device_launches
+
+
+def harness_phase(card: str, log_dir: Path) -> tuple:
+    """The paper's harnesses, the autotune benchmark and the perf gate,
+    each ``python -m repro_torch.benchmarks.<name>`` in a subprocess with
+    ``PYTHONHASHSEED`` fixed (``paper_graph`` seeds with ``hash(name)``):
+    Table II, Fig. 5 at Table II's sizes, Table V, Fig. 6, the autotune
+    benchmark at its pinned workloads, then the gate over every artifact
+    this run wrote.  The K1/K2 counts of the autotune path are its
+    subprocess's own (from 0 at its start), read from its record; its
+    record also holds every cell's K1/K2 states, under the default and
+    the tuned plans, against the plain version's on the card."""
+    from repro_torch.benchmarks.autotune import OUT as AUTOTUNE_OUT
+    from repro_torch.benchmarks.compare import ARTIFACTS, BASELINES, RESULTS
+    from repro_torch.benchmarks.fig5 import _configs_for
+    from repro_torch.graph import PAPER_GRAPHS
+    record = {"seconds": {}}
+    log_dir.mkdir(parents=True, exist_ok=True)
+
+    def bench(name, args=()):
+        record["seconds"][name] = _bench_subprocess(
+            f"repro_torch.benchmarks.{name}", list(args),
+            log_dir / f"{name}.log")
+        path = AUTOTUNE_OUT if name == "autotune" else RESULTS / \
+            f"{name}.json"
+        data = json.loads(path.read_text())
+        if data.get("card") != card:
+            raise AssertionError(f"{name}: card {data.get('card')!r}")
+        return data
+
+    # Table II: section (a) against the reference's, pinned
+    t2 = bench("table2")
+    for row in t2["rows"]:
+        pub, comp = TABLE2_PINNED[row["graph"]]
+        want = (dict(zip(("volume_kb", "vol_class", "reuse", "reuse_class",
+                          "imb", "imb_class"), pub)),
+                dict(zip(("volume_kb", "vol_class", "reuse", "reuse_class"),
+                         comp)))
+        if (row["published"], row["computed_from_published"]) != want:
+            raise AssertionError(f"table2 {row['graph']}: {row}")
+        log(f"table2 {row['graph']}: ok (a) {row['computed_from_published']}"
+            f" (b) {json.dumps(row['measured_on_recreation'])}")
+    if len(t2["rows"]) != len(TABLE2_PINNED):
+        raise AssertionError(f"table2: {len(t2['rows'])} rows")
+
+    # Fig. 5 at Table II's sizes, every app
+    f5 = bench("fig5", ["--scale", str(FIG5_SCALE)])
+    cells = f5["cells"]
+    if f5["workload"]["scale"] != FIG5_SCALE or \
+            f5["pythonhashseed"] != HASH_SEED:
+        raise AssertionError(f"fig5: ran {f5['workload']}")
+    apps = f5["workload"]["apps"]
+    want = {f"{g}/{a}": list(_configs_for(a)) for g in PAPER_GRAPHS
+            for a in apps}
+    if {k: list(v["configs"]) for k, v in cells.items()} != want:
+        raise AssertionError(f"fig5: workloads {sorted(cells)}")
+    bad = [f"{k}/{c}" for k, v in cells.items()
+           for c, r in v["configs"].items()
+           if not r["converged"] or (c.startswith("D")
+                                     and not r.get("directions"))]
+    if bad:
+        raise AssertionError(f"fig5: not converged or no trace: {bad}")
+    best = {k: v["best"] for k, v in cells.items()}
+    record["fig5"] = dict(workload=f5["workload"], best=best,
+                          n_workloads=len(cells),
+                          n_cells=sum(len(v["configs"])
+                                      for v in cells.values()),
+                          best_not_tg0_dg1=sum(b not in ("TG0", "DG1")
+                                               for b in best.values()))
+    for k, v in cells.items():
+        log(f"fig5 {k}: best={v['best']} " + " ".join(
+            f"{c}={r['seconds'] * 1e3:.4f}ms/{r['iterations']}"
+            + (f"[{r['directions']}]" if "directions" in r else "")
+            for c, r in v["configs"].items()))
+    log(f"fig5: {record['fig5']['n_workloads']} workloads, "
+        f"{record['fig5']['n_cells']} cells, best not TG0/DG1 in "
+        f"{record['fig5']['best_not_tg0_dg1']}")
+
+    # Table V and Fig. 6 over this run's Fig. 5
+    t5 = bench("table5", ["--scale", str(FIG5_SCALE)])
+    if t5["paper_faithful"]["match_table_v"] != "36/36":
+        raise AssertionError(f"table5: {t5['paper_faithful']}")
+    record["table5"] = {k: t5[k] for k in ("deployed_exact_hits",
+                                           "deployed_mean_gap")}
+    record["table5"]["paper_faithful"] = \
+        t5["paper_faithful"]["match_table_v"]
+    log(f"table5: paper_faithful={record['table5']['paper_faithful']} "
+        f"deployed hits={t5['deployed_exact_hits']}/{len(t5['deployed'])} "
+        f"mean gap={t5['deployed_mean_gap']}")
+    f6 = bench("fig6")
+    record["fig6"] = {k: f6[k] for k in ("n_cases", "avg_reduction_pct",
+                                         "max_reduction_pct")}
+    log(f"fig6: {json.dumps(record['fig6'])}")
+
+    # the autotune benchmark: K1/K2 on every S*D, T* and D* cell
+    at = bench("autotune")
+    launches = at["kernel_launches"]
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"autotune: K1/K2 wrapper calls {launches}")
+    unequal = [f"{w}/{c}" for w, wl in at["workloads"].items()
+               for c, cell in wl["configs"].items()
+               if not cell["states_equal"]]
+    if unequal or not at["summary"]["states_equal"]:
+        raise AssertionError(f"autotune: measure != off in {unequal}")
+    # the default and the tuned plans' K1/K2 states against the plain
+    # version, bit for bit, at this path's graphs and plans
+    unplain = [f"{w}/{c}" for w, wl in at["workloads"].items()
+               for c, cell in wl["configs"].items()
+               if not cell["plain_equal"]]
+    if unplain or not at["summary"]["plain_equal"]:
+        raise AssertionError(f"autotune: kernels != plain in {unplain}")
+    record["autotune"] = dict(summary=at["summary"],
+                              kernel_launches=launches,
+                              workloads={w: wl["summary"] for w, wl
+                                         in at["workloads"].items()})
+    for w, wl in at["workloads"].items():
+        log(f"autotune {w}: {json.dumps(wl['summary'])} tuning " + " ".join(
+            f"{o}={t['plan']['tile_e']}x{t['plan']['block_mult']}/"
+            f"{t['plan']['block_div']}/{t['plan']['gather_splits']}"
+            f"@{t['kernel_speedup_vs_default']}"
+            for o, t in wl["tuning"].items()))
+    log(f"autotune launches: {json.dumps(launches)}")
+
+    # the gate, last: every artifact of this run against the baselines
+    record["seconds"]["compare"] = _bench_subprocess(
+        "repro_torch.benchmarks.compare", [], log_dir / "compare.log")
+    record["gate"] = [line for line in
+                      (log_dir / "compare.log").read_text().splitlines()
+                      if line.startswith("perf-gate")]
+    for line in record["gate"]:
+        log(line)
+    if len(record["gate"]) != len(ARTIFACTS):
+        raise AssertionError(f"compare: {record['gate']} against "
+                             f"{BASELINES}")
+    return record, launches
 
 
 def main() -> int:
@@ -2506,7 +2679,7 @@ def main() -> int:
     # 4. the graph path, then the dispatch benchmark and the K sweep
     runs, launches, device_launches = main_path(graph, dev)
     clock.lap("4 graph path")
-    dispatch = dispatch_phase(graph, dev)
+    dispatch = dispatch_phase(graph, dev, out.parent)
     clock.lap("4b dispatch")
     from repro_torch.core import PLAN_CACHE
     PLAN_CACHE.clear()  # the captured graphs and their pools
@@ -2537,12 +2710,17 @@ def main() -> int:
     free_device_memory()
 
     # 4g. the streaming gateway
-    gateway, gw_launches, gw_device = gateway_phase(graph, dev)
+    gateway, gw_launches, gw_device = gateway_phase(graph, dev, out.parent)
     clock.lap("4g gateway")
     gateway["seconds"] = clock.seconds["4g gateway"]
     del graph
     PLAN_CACHE.clear()
     free_device_memory()
+
+    # 4h. the paper's harnesses, the autotune benchmark, the perf gate
+    harnesses, harness_launches = harness_phase(card, out.parent)
+    clock.lap("4h harnesses")
+    harnesses["phase_seconds"] = clock.seconds["4h harnesses"]
 
     # 5. DLRM serving
     dlrm, launches["embag"], k3_rows = dlrm_phase(dev)
@@ -2570,6 +2748,7 @@ def main() -> int:
             row["specialize_device_launches"] = spec_device[row["kernel"]]
             row["gateway_launches"] = gw_launches[row["kernel"]]
             row["gateway_device_launches"] = gw_device[row["kernel"]]
+            row["harness_launches"] = harness_launches[row["kernel"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
@@ -2589,6 +2768,8 @@ def main() -> int:
                                    gateway=gateway,
                                    gateway_launches=gw_launches,
                                    gateway_device_launches=gw_device,
+                                   harnesses=harnesses,
+                                   harness_launches=harness_launches,
                                    dlrm=dlrm, attention=attn,
                                    phase_seconds=clock.seconds), indent=1))
     # 7. the kernel table, then the last line

@@ -538,6 +538,12 @@ class RunResult:
             return None
         return sum(1 for o in self.occupancy_trace if o >= 0.0)
 
+    @property
+    def mean_sparse_occupancy(self) -> Optional[float]:
+        """Mean m_f/cap_e over the sparse-gathered iterations."""
+        occ = [o for o in (self.occupancy_trace or []) if o >= 0.0]
+        return sum(occ) / len(occ) if occ else None
+
     def extract(self, program: VertexProgram):
         return program.extract(self.state)
 

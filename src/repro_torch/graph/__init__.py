@@ -9,6 +9,10 @@ from repro_torch.graph.datasets import (DEGREE_PROFILES, PAPER_AN,
                                         degree_profile, fetch_instructions,
                                         load_real_graph, paper_graph,
                                         real_graph_path)
+from repro_torch.graph.partition import (EdgePartition, VertexPartition,
+                                         partition_edges_1d,
+                                         partition_vertices)
+from repro_torch.graph.sampler import NeighborSampler, SampledBlock
 
 __all__ = [
     "ARRAY_FIELDS", "Graph", "graph_from_arrays", "validate_graph",
@@ -17,4 +21,6 @@ __all__ = [
     "PAPER_GRAPHS", "PAPER_STATS", "PAPER_AN", "PAPER_SOURCES",
     "DEGREE_PROFILES", "paper_graph", "dataset_graph", "load_real_graph",
     "real_graph_path", "degree_profile", "fetch_instructions",
+    "EdgePartition", "VertexPartition", "partition_edges_1d",
+    "partition_vertices", "NeighborSampler", "SampledBlock",
 ]

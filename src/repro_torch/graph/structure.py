@@ -137,6 +137,13 @@ class Graph:
         return self.src[perm], self.dst[perm], self.weight[perm]
 
 
+def host_array(a) -> np.ndarray:
+    """A graph array as host numpy, wherever it lives."""
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
 def graph_from_arrays(arrays: Dict[str, np.ndarray], n_nodes: int,
                       n_edges: int, block_size: int) -> Graph:
     """Build the port's :class:`Graph` from another graph's arrays.

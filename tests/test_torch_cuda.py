@@ -1227,3 +1227,58 @@ def test_gateway_kill_and_recover_on_the_card(cuda_device, tmp_path):
         assert got.direction_trace == want.direction_trace
         for key, v in want.state.items():
             assert np.array_equal(got.state[key], v), key
+
+
+@pytest.mark.cuda
+def test_autotune_bench_launches_k1_k2_and_keeps_measure_equal_to_off(
+        cuda_device, tmp_path, monkeypatch):
+    import repro_torch.kernels.autotune as at
+    from repro_torch.benchmarks import autotune as bench
+    monkeypatch.setattr(at, "DEFAULT_CACHE_PATH",
+                        str(tmp_path / "autotune_cache.json"))
+    monkeypatch.setattr(bench, "SMOKE_WORKLOADS",
+                        {"skew": bench.SMOKE_WORKLOADS["skew"]})
+    before = (seg_sum.launches, seg_minmax.launches)
+    rec = bench.run_autotune(out_path=None, smoke=True, repeats=2,
+                             device=cuda_device)
+    assert rec["kernel_launches"] == {
+        "seg_sum": seg_sum.launches - before[0],
+        "seg_minmax": seg_minmax.launches - before[1]}
+    assert min(rec["kernel_launches"].values()) > 0
+    assert rec["summary"]["states_equal"] is True
+    assert rec["summary"]["plain_equal"] is True
+    cells = rec["workloads"]["skew"]["configs"]
+    assert len(cells) == 18 and all(c["states_equal"] and c["plain_equal"]
+                                    for c in cells.values())
+    assert all(c["speedup"] == 1.0 for c in cells.values()
+               if not c["plans_differ"])
+    assert rec["card"] and rec["device"].startswith("cuda")
+
+
+@pytest.mark.cuda
+def test_partition_and_sampler_accept_a_graph_on_the_card(cuda_device):
+    import dataclasses
+    from repro_torch.graph import (NeighborSampler, partition_edges_1d,
+                                   partition_vertices)
+    g = powerlaw_graph(400, 2400, alpha=1.0, seed=3, weighted=True,
+                       block_size=64)
+    gd = g.to(cuda_device)
+    assert gd.src.is_cuda
+    for fn in (partition_edges_1d, partition_vertices):
+        for n in (1, 3, 8):
+            a, b = fn(gd, n), fn(g, n)
+            for f in dataclasses.fields(b):
+                x, y = getattr(a, f.name), getattr(b, f.name)
+                if isinstance(y, np.ndarray):
+                    assert isinstance(x, np.ndarray) and x.dtype == y.dtype
+                    assert np.array_equal(x, y), f.name
+                else:
+                    assert x == y
+    seeds = np.arange(0, 400, 13)
+    for seed in (0, 7):
+        got = NeighborSampler(gd, (5, 3), seed=seed).sample(seeds)
+        want = NeighborSampler(g, (5, 3), seed=seed).sample(seeds)
+        for x, y in zip(got, want):
+            assert np.array_equal(x.src_global, y.src_global)
+            assert np.array_equal(x.edge_mask, y.edge_mask)
+            assert np.array_equal(x.seeds, y.seeds)
