@@ -38,11 +38,17 @@ script exits non-zero:
    - K4 at starcoder2-7b widths (Hq=36, Hkv=4, D=128, B=1): bf16 causal
      Sq=Sk=4,096 and causal suffix Sq=512, Sk=4,096 (atol=1e-2 plus
      rtol=2**-7, one bf16 step of the output) on the tensor-core kernel,
-     f32 full Sq=Sk=1,024 (atol=2e-3) on the CUDA-core kernel, each row
+     f32 full Sq=Sk=1,024 (atol=2e-3) on the CUDA-core kernel, and with
+     the sliding window: bf16 causal Sq=Sk=8,192, window 4,096
+     (starcoder2-7b's), against ``layers.blocked_attention`` (the plain
+     version on the LM path: the one-pass plain version would hold tens
+     of GB there), and f32 causal Sq=Sk=1,024, window 256; each row
      naming its kernel with its registers and shared memory;
      ``F.scaled_dot_product_attention`` with ``enable_gqa=True``, its
-     causal mask aligned to the end as K4's is (``causal_lower_right``),
-     held to the same tolerance.
+     causal mask aligned to the end as K4's is (``causal_lower_right``;
+     the window as an explicit boolean mask, the SDPA backend it takes
+     read from a profiled call's device ops), held to the same
+     tolerance.  The bound counts the pairs the mask leaves visible.
    Every row carries ``bound_share`` (the bound over the kernel's time)
    and ``library_over_ms`` (the library call's time over the kernel's).
 4. graph path: with the K1/K2 counts set to 0, run every app of the
@@ -226,7 +232,29 @@ script exits non-zero:
 6. attention: with the K4 count set to 0, call ``attention`` at
    starcoder2-7b widths (bf16 causal, Sq=Sk=4,096); require a K4
    launch and agreement with the plain version (K4's bf16 tolerance).
-7. print the kernel table as one JSON line, then the last line
+7. LM serving (``repro_torch.launch.lm_demo``): (a) starcoder2-7b at its
+   full config (32 layers, 7.17 B bf16 parameters drawn on the card from
+   ``torch.Generator`` seed 0), with the K4 count set to 0, served by
+   ``lm_demo.serve`` at batch 4, an 8,192-token prompt and 16 generated
+   tokens, after serve's untimed prefill and decode step at the same
+   shapes: require 32 K4 launches in the timed prefill (one per layer,
+   with the window of 4,096), 64 in the call, and finite logits; print
+   prefill ms, decode ms per token and peak memory, and log the process
+   state the earlier phases leave (sync-debug mode, live threads, the
+   objects the garbage collector tracks, its passes during the call).
+   (b) The served prefill's last-token logits (B=4, S=8,192, K4)
+   against a prefill of the same prompt with ``blocked_attention``:
+   within ``LM_LOGIT_TOL``, the same argmax.  (c) Decode of token 6,000 (past
+   the window) against ``prefill(tokens[:6000])``'s cache, against
+   ``prefill(tokens[:6001])``'s last logits, to the same tolerance.
+   One profiled prefill and one profiled decode step at (a)'s shapes
+   (top device ops, idle share, K4's device ms).  (d) command-r-35b at
+   full width and 4 of its 40 layers (the depth is the only cut;
+   parallel block, SwiGLU, no bias, rope theta 8e6, K4 without a
+   window), counted from 0: prefill at B=1, S=2,048 and 8 decode steps
+   with 4 K4 launches in the timed prefill (8 in the call), then the
+   served prefill against ``blocked_attention`` as in (b).
+8. print the kernel table as one JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The full record also goes to ``--out``.
@@ -234,6 +262,7 @@ The full record also goes to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -242,6 +271,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -303,15 +333,38 @@ DLRM_MAX_ROWS = 16_000_000
 SC2_HQ, SC2_HKV, SC2_D = 36, 4, 128
 #: K3 cases: (bags, indices per bag, mode)
 EMBAG_CASES = [(512, 1, "sum"), (262_144, 1, "sum"), (65_536, 8, "mean")]
-#: K4 cases: (Sq, Sk, causal, dtype)
-ATTN_CASES = [(4096, 4096, True, torch.bfloat16),
-              (512, 4096, True, torch.bfloat16),
-              (1024, 1024, False, torch.float32)]
+#: K4 cases: (Sq, Sk, causal, dtype, window, plain version); the
+#: windowed rows take starcoder2-7b's own window
+#: (``configs/starcoder2_7b.py:12``) at its prefill length, and a quarter
+#: of Sk on the f32 kernel.  The plain version at 8,192^2 is the LM
+#: path's ``blocked_attention``: ``flash_attention_plain``'s score matrix
+#: there would hold tens of GB
+ATTN_CASES = [
+    (4096, 4096, True, torch.bfloat16, None, "flash_attention_plain"),
+    (512, 4096, True, torch.bfloat16, None, "flash_attention_plain"),
+    (1024, 1024, False, torch.float32, None, "flash_attention_plain"),
+    (8192, 8192, True, torch.bfloat16, 4096, "blocked_attention"),
+    (1024, 1024, True, torch.float32, 256, "flash_attention_plain")]
 #: K4 against its plain version: f32 to the reference's kernel-test
 #: tolerance; bf16 to one bf16 step of the output (rtol 2**-7) plus 1e-2,
 #: well under the output's scale (about 0.026 at 4,096 keys)
 ATTN_TOL = {torch.float32: dict(rtol=0.0, atol=2e-3),
             torch.bfloat16: dict(rtol=2**-7, atol=1e-2)}
+#: phase 7: starcoder2-7b served through lm_demo (weights from
+#: ``torch.Generator`` seed LM_SEED on the card), K4 against its plain
+#: version on the served prompt, decode at LM_DECODE_AT (past the
+#: window) against prefill, and command-r-35b at full width and
+#: LM_CR_LAYERS of its 40 layers (the depth is the only cut)
+LM_SEED = 0
+LM_SERVE = dict(batch=4, prompt_len=8192, gen=16)
+LM_DECODE_AT = 6000
+LM_CR_LAYERS = 4
+LM_CR_SERVE = dict(batch=1, prompt_len=2048, gen=8)
+#: two bf16 runs' last-token logits (K4 against blocked_attention,
+#: decode against prefill): their largest difference was 0.073 on
+#: logits of up to 8.4 (NVIDIA H100 80GB HBM3, 700.00 W; bf16 rounds p
+#: and every activation at other places in the two runs, over 32 layers)
+LM_LOGIT_TOL = 0.15
 #: DLRM serving: timed requests per cell, after one untimed warm-up each
 DLRM_REQUESTS = {"serve_p99": 8, "serve_bulk": 4, "retrieval_cand": 4}
 #: the table-batched K3's launch variants: (items per warp, threads per
@@ -498,14 +551,18 @@ def embag_rows(dev, flush) -> list:
     return rows
 
 
-def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
+def _visible_pairs(sq: int, sk: int, causal: bool, window=None) -> int:
     """(query, key) pairs K4 must score: all of them, or under the causal
     mask aligned to the end, those with key <= row + Sk - Sq (a row that
-    sees no key averages all Sk, as the TPU kernel's -1e30 rule does)."""
+    sees no key averages all Sk, as the TPU kernel's -1e30 rule does),
+    and with a window also key > row + Sk - Sq - window."""
     if not causal:
         return sq * sk
-    rows = np.arange(sq) + (sk - sq) + 1
-    return int(np.where(rows > 0, np.minimum(rows, sk), sk).sum())
+    rows = np.arange(sq) + (sk - sq) + 1          # keys 0 .. row visible
+    seen = np.minimum(rows, sk)
+    if window is not None:
+        seen = np.minimum(seen, window)
+    return int(np.where(rows > 0, seen, sk).sum())
 
 
 def _qkv(gen, dev, sq, sk, dtype):
@@ -515,6 +572,13 @@ def _qkv(gen, dev, sq, sk, dtype):
             for shape in shapes]
 
 
+def _window_mask(sq: int, sk: int, window: int, dev) -> torch.Tensor:
+    """SDPA's boolean mask (True = attend) of K4's causal window."""
+    rows = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+    cols = torch.arange(sk, device=dev)[None, :]
+    return (cols <= rows) & (cols > rows - window)
+
+
 def attention_rows(dev, flush) -> list:
     """K4 at starcoder2-7b widths."""
     import torch.nn.functional as F
@@ -522,19 +586,28 @@ def attention_rows(dev, flush) -> list:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
                                                      kernel_info)
+    from repro_torch.models.layers import blocked_attention
+    plains = dict(flash_attention_plain=flash_attention_plain,
+                  blocked_attention=blocked_attention)
     gen = torch.Generator(device=dev).manual_seed(13)
     rows = []
-    for sq, sk, causal, dtype in ATTN_CASES:
+    for sq, sk, causal, dtype, window, plain_name in ATTN_CASES:
         info = kernel_info(dtype, SC2_D)
         log(f"flash_attention {str(dtype)[6:]} D={SC2_D}: {info['kernel']}, "
             f"{info['registers']} registers, {info['shared_bytes']} bytes "
             "of shared memory")
         q, k, v = _qkv(gen, dev, sq, sk, dtype)
-        kernel = lambda: flash_attention(q, k, v, causal=causal)
-        plain = lambda: flash_attention_plain(q, k, v, causal=causal)
+        kernel = lambda: flash_attention(q, k, v, causal=causal,
+                                         window=window)
+        plain = lambda: plains[plain_name](q, k, v, causal=causal,
+                                           window=window)
         # Sq <= Sk here, so every row sees a key and the -1e30 rule is
-        # moot: SDPA with the end-aligned mask computes the same function
-        mask = causal_lower_right(sq, sk) if causal else None
+        # moot: SDPA with the end-aligned mask (and the window as an
+        # explicit boolean mask) computes the same function
+        if window is not None:
+            mask = _window_mask(sq, sk, window, dev)
+        else:
+            mask = causal_lower_right(sq, sk) if causal else None
         library = lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)
         got, want, lib_out = kernel(), plain(), library()
@@ -549,20 +622,28 @@ def attention_rows(dev, flush) -> list:
         err = float((got.float() - want.float()).abs().max())
         library_err = float((lib_out.float() - want.float()).abs().max())
         library_ms = time_ms(library, flush)
+        # which SDPA backend took the call with the window's mask: its
+        # device ops' names
+        library_ops = None if window is None else [
+            op["name"] for op in profile_request(
+                f"sdpa Sq={sq} window={window}", library)["top"]]
         elt = q.element_size()
         moved = (2 * q.numel() + k.numel() + v.numel()) * elt
-        ops = 4 * SC2_HQ * _visible_pairs(sq, sk, causal) * SC2_D
+        pairs = _visible_pairs(sq, sk, causal, window)
+        ops = 4 * SC2_HQ * pairs * SC2_D
+        mask_name = ("causal" if causal else "full") + (
+            f",window={window}" if window is not None else "")
         rows.append(_row(
-            f"flash_attention[{str(dtype)[6:]},"
-            f"{'causal' if causal else 'full'},B=1,Hq={SC2_HQ},"
-            f"Hkv={SC2_HKV},Sq={sq},Sk={sk},D={SC2_D}]",
+            f"flash_attention[{str(dtype)[6:]},{mask_name},B=1,"
+            f"Hq={SC2_HQ},Hkv={SC2_HKV},Sq={sq},Sk={sk},D={SC2_D}]",
             "flash_attention", err, time_ms(kernel, flush),
             time_ms(plain, flush), library_ms, moved, ops,
             BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S,
             library_max_abs_err=library_err, sq=sq, sk=sk, causal=causal,
-            k4_kernel=info["kernel"], registers=info["registers"],
-            shared_bytes=info["shared_bytes"]))
-        del q, k, v, got, want, lib_out
+            window=window, visible_pairs=pairs, plain=plain_name,
+            library_ops=library_ops, k4_kernel=info["kernel"],
+            registers=info["registers"], shared_bytes=info["shared_bytes"]))
+        del q, k, v, got, want, lib_out, mask
     return rows
 
 
@@ -835,7 +916,8 @@ def profile_request(cell: str, request, attempts: int = 3) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_span_ms=span,
                 idle_share=1 - busy / span, ops=len(ops),
                 top=[dict(name=name, ms=ms, count=n)
-                     for name, (ms, n) in top], counts=counts)
+                     for name, (ms, n) in top], counts=counts,
+                ms_by_name={name: ms for name, (ms, _) in by_name.items()})
 
 
 def attention_path(dev) -> tuple:
@@ -863,6 +945,186 @@ def attention_path(dev) -> tuple:
                                **ATTN_TOL[torch.bfloat16])
     log(f"attention: ok seconds={seconds:.4f} max_abs_err={err}")
     return dict(seconds=seconds, max_abs_err=err, launches=launches), launches
+
+
+def _lm_check(what: str, got: torch.Tensor, want: torch.Tensor,
+              tol: float) -> dict:
+    """Last-token logits of two runs of one LM: finite, within ``tol``
+    of each other, the same argmax per row; the figures are logged
+    before any check can raise."""
+    err = float((got - want).abs().max())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    top2 = want.topk(2, dim=-1).values
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    log(f"lm {what}: max_abs_err={err} tol={tol} argmax_equal={same} "
+        f"top1-top2 gap={gap:.4f} max|logit|={float(want.abs().max()):.3f}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"lm {what}: non-finite logits")
+    if err > tol or not same:
+        raise AssertionError(f"lm {what}: logits differ by {err} "
+                             f"(tol {tol}), argmax equal {same}")
+    return dict(max_abs_err=err, argmax_equal=same, top_gap=gap)
+
+
+def _process_state() -> dict:
+    """What the earlier phases leave in the process that can slow a
+    host-bound loop: the sync-debug mode, the live Python threads and
+    all of the process's threads, the objects the garbage collector
+    tracks, and the host's load average."""
+    return dict(sync_debug_mode=torch.cuda.get_sync_debug_mode(),
+                threads=sorted(t.name for t in threading.enumerate()),
+                os_threads=len(os.listdir("/proc/self/task")),
+                gc_objects=len(gc.get_objects()),
+                load_avg=os.getloadavg())
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """The garbage collector's passes inside the block: their number
+    and their total ms on the host clock."""
+    pauses, started = dict(collections=0, ms=0.0), []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses["collections"] += 1
+            pauses["ms"] += (time.perf_counter() - started.pop()) * 1e3
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def lm_phase(dev) -> tuple:
+    """Phase 7: dense-LM serving at published widths.  Returns (record,
+    K4 launches of starcoder2-7b's serving run, of command-r-35b's)."""
+    import dataclasses as dc
+    from repro_torch.configs import command_r_35b, starcoder2_7b
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.lm_demo import serve
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+    record = {}
+
+    # (a) starcoder2-7b at its full config, served through lm_demo
+    cfg = starcoder2_7b.CFG
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(dev).manual_seed(LM_SEED), dev)
+    torch.cuda.synchronize()
+    log(f"lm {cfg.name}: {cfg.n_layers} layers, {cfg.n_params} parameters, "
+        f"{sum(t.numel() * t.element_size() for t in params.parameters())} "
+        f"bytes, drawn in {time.perf_counter() - t0:.1f} s")
+    record["process"] = _process_state()
+    flash_attention.launches = 0
+    with _gc_pauses() as pauses:
+        served = serve(cfg, params, device=dev, **LM_SERVE)
+    sc2_launches = flash_attention.launches
+    record["process"]["gc_during_serve"] = pauses
+    log(f"lm process: {json.dumps(record['process'])}")
+    log(f"lm launches: {json.dumps({'flash_attention': sc2_launches})}")
+    # serve's untimed warm-up prefill and its timed one: one launch per
+    # layer each
+    if (served["k4_launches"] != cfg.n_layers
+            or sc2_launches != 2 * cfg.n_layers):
+        raise AssertionError(f"lm {cfg.name}: {served['k4_launches']} K4 "
+                             f"launches in its timed prefill and "
+                             f"{sc2_launches} in all, {cfg.n_layers} "
+                             "layers")
+    if not torch.isfinite(served["last_logits"]).all():
+        raise AssertionError(f"lm {cfg.name}: non-finite logits")
+    record[cfg.name] = {k: served[k] for k in (
+        "batch", "prompt_len", "gen", "prefill_ms", "decode_ms_per_token",
+        "k4_launches", "peak_bytes")}
+    record[cfg.name]["token_ids"] = served["token_ids"][:, :8].tolist()
+    got = served["prefill_logits"]
+    del served
+    free_device_memory()
+
+    # (b) the served prefill (K4) against its plain version on the same
+    # prompt, at the served batch
+    b, s = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    prompt = lm_batch(0, b, s, cfg.vocab)["tokens"]
+    want, _ = prefill(cfg, params, prompt, impl="plain", device=dev)
+    record["k4_vs_plain"] = _lm_check(
+        f"{cfg.name} served prefill K4 vs blocked_attention B={b} S={s}",
+        got, want, LM_LOGIT_TOL)
+    # (c) decode past the window against prefill
+    t = LM_DECODE_AT
+    toks = torch.from_numpy(lm_batch(1, 1, t + 1, cfg.vocab)
+                            ["tokens"]).to(dev)
+    _, (kc, vc) = prefill(cfg, params, toks[:, :t], device=dev)
+    shape = (cfg.n_layers, 1, cfg.n_kv_heads, t + 1, cfg.d_head)
+    k_cache = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    v_cache = torch.zeros_like(k_cache)
+    k_cache[:, :, :, :t], v_cache[:, :, :, :t] = kc, vc
+    del kc, vc
+    lg, _ = decode_step(cfg, params, toks[:, t:t + 1], (k_cache, v_cache), t,
+                        device=dev)
+    full, _ = prefill(cfg, params, toks[:, :t + 1], device=dev)
+    record["decode_vs_prefill"] = _lm_check(
+        f"{cfg.name} decode at t={t} vs prefill", lg[:, 0], full,
+        LM_LOGIT_TOL)
+    del got, want, lg, full, k_cache, v_cache
+    free_device_memory()
+
+    # one profiled prefill and one profiled decode step at (a)'s shapes
+    cache = {}
+    record["profile_prefill"] = profile_request(
+        "lm prefill", lambda: cache.setdefault(
+            "kv", prefill(cfg, params, prompt, device=dev)[1]))
+    kc, vc = cache.pop("kv")
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, s + 1, cfg.d_head)
+    k_cache = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    v_cache = torch.zeros_like(k_cache)
+    k_cache[:, :, :, :s], v_cache[:, :, :, :s] = kc, vc
+    del kc, vc
+    tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    record["profile_decode"] = profile_request(
+        "lm decode step", lambda: decode_step(
+            cfg, params, tok, (k_cache, v_cache), s, device=dev))
+    for key in ("profile_prefill", "profile_decode"):
+        k4 = sum(ms for name, ms in record[key]["ms_by_name"].items()
+                 if "flash_fwd" in name)
+        record[key]["k4_ms"] = k4
+        log(f"lm {key}: K4 {k4:.4f} ms of {record[key]['device_busy_ms']:.4f}"
+            " ms busy")
+    del params, k_cache, v_cache, tok
+    free_device_memory()
+
+    # (d) command-r-35b at full width, its depth cut to LM_CR_LAYERS
+    cr = dc.replace(command_r_35b.CFG, n_layers=LM_CR_LAYERS)
+    log(f"lm {cr.name}: full width, {cr.n_layers} of "
+        f"{command_r_35b.CFG.n_layers} layers (reduced: depth only), "
+        f"{cr.n_params} parameters")
+    params = init_lm(cr, torch.Generator(dev).manual_seed(LM_SEED), dev)
+    flash_attention.launches = 0
+    served = serve(cr, params, device=dev, **LM_CR_SERVE)
+    cr_launches = flash_attention.launches
+    log(f"lm launches: {json.dumps({'flash_attention': cr_launches})}")
+    if (served["k4_launches"] != cr.n_layers
+            or cr_launches != 2 * cr.n_layers):
+        raise AssertionError(f"lm {cr.name}: {served['k4_launches']} K4 "
+                             f"launches in its timed prefill and "
+                             f"{cr_launches} in all, {cr.n_layers} layers")
+    if not torch.isfinite(served["last_logits"]).all():
+        raise AssertionError(f"lm {cr.name}: non-finite logits")
+    record[cr.name] = {k: served[k] for k in (
+        "batch", "prompt_len", "gen", "prefill_ms", "decode_ms_per_token",
+        "k4_launches", "peak_bytes")}
+    record[cr.name]["layers"] = f"{cr.n_layers} of {command_r_35b.CFG.n_layers}"
+    b, s = LM_CR_SERVE["batch"], LM_CR_SERVE["prompt_len"]
+    got = served["prefill_logits"]
+    want, _ = prefill(cr, params, lm_batch(0, b, s, cr.vocab)["tokens"],
+                      impl="plain", device=dev)
+    record["cr_k4_vs_plain"] = _lm_check(
+        f"{cr.name} served prefill K4 vs blocked_attention B={b} S={s}",
+        got, want, LM_LOGIT_TOL)
+    del params, served, got, want
+    free_device_memory()
+    return record, sc2_launches, cr_launches
 
 
 def free_device_memory() -> None:
@@ -2729,11 +2991,21 @@ def main() -> int:
     free_device_memory()
 
     # 6. the attention entry point
-    attn, launches["flash_attention"] = attention_path(dev)
+    attn, attn_launches = attention_path(dev)
     clock.lap("6 attention")
+    free_device_memory()
+
+    # 7. LM serving: K4 once per layer of every prefill
+    lm, launches["flash_attention"], cr_launches = lm_phase(dev)
+    clock.lap("7 lm serving")
     free_device_memory()
     for row in rows:
         row["launches"] = launches[row["kernel"]]
+        if row["kernel"] == "flash_attention":
+            row["attention_launches"] = attn_launches
+            row["command_r_launches"] = cr_launches
+            if attn_launches <= 0 or cr_launches <= 0:
+                raise AssertionError(f"{row['name']}: no launch on a path")
         if row["kernel"] in device_launches:
             row["device_launches"] = device_launches[row["kernel"]]
             # the later paths, each counted from 0 on its own
@@ -2770,9 +3042,9 @@ def main() -> int:
                                    gateway_device_launches=gw_device,
                                    harnesses=harnesses,
                                    harness_launches=harness_launches,
-                                   dlrm=dlrm, attention=attn,
+                                   dlrm=dlrm, attention=attn, lm=lm,
                                    phase_seconds=clock.seconds), indent=1))
-    # 7. the kernel table, then the last line
+    # 8. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))
     log(last)
     return 0

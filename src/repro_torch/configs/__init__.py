@@ -1,1 +1,2 @@
-"""Model configurations; DLRM-MLPerf is the first one ported."""
+"""Model configurations: DLRM-MLPerf and the dense LMs; ``registry``
+looks an arch up by name."""

@@ -2,13 +2,25 @@
 
 Deterministic per (seed, step): numpy's ``default_rng((seed, step))``
 draws the same arrays as the reference, so both packages see identical
-batches.  Only the DLRM source is ported so far.
+batches.  The LM and DLRM sources are ported; the GNN source comes with
+the GNNs.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["dlrm_batch"]
+__all__ = ["lm_batch", "dlrm_batch"]
+
+
+def lm_batch(step: int, batch: int, seq: int, vocab: int, seed: int = 0):
+    """One LM batch as numpy arrays (``synthetic.py:11-16``, copied
+    exactly): zipf(1.3) token ids modulo ``vocab``, tokens [B, S] and the
+    next-token labels [B, S], int32."""
+    rng = np.random.default_rng((seed, step))
+    # zipf-ish marginals so the loss curve is non-trivial
+    tok = rng.zipf(1.3, size=(batch, seq + 1)).astype(np.int64) % vocab
+    return {"tokens": tok[:, :-1].astype(np.int32),
+            "labels": tok[:, 1:].astype(np.int32)}
 
 
 def dlrm_batch(step: int, batch: int, vocab_sizes, multi_hot: int = 1,

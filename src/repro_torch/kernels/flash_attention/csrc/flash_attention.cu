@@ -11,6 +11,11 @@
 //   - a causal mask aligned to the end (row i sees keys <= i + Sk - Sq),
 //     whose masked scores are -1e30, not -inf: a row that sees no key
 //     averages V uniformly, as on the TPU;
+//   - under the causal mask, an optional sliding window (window > 0; 0
+//     is none): row i also sees no key <= i + Sk - Sq - window, masked
+//     with -1e30 as well (the rule of the reference's blocked attention,
+//     src/repro/models/layers.py:blocked_attention_xla, which the
+//     sliding-window models serve through; the TPU kernel has none);
 //   - p is rounded to V's type before the P.V product, which accumulates
 //     in float32; the output is acc / max(l, 1e-30) in q's type.
 // Unlike the TPU kernel, the ragged edge is masked: key columns >= Sk
@@ -79,7 +84,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int hq, int hkv, int sq, int sk, bool causal,
-                     float scale) {
+                     int window, float scale) {
   constexpr int LD = D + 1;  // padded row stride of the Q and K/V tiles
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -110,11 +115,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   int n_k = (sk + kBK - 1) / kBK;
+  int kt0 = 0;
   if (causal && q0 + seq_off >= 0) {
     n_k = min(n_k, (q0 + kBQ - 1 + seq_off) / kBK + 1);
+    // the first key the first row sees; no later row sees an earlier one
+    if (window > 0) kt0 = max(0, q0 + seq_off - window + 1) / kBK;
   }
 
-  for (int kt = 0; kt < n_k; ++kt) {
+  for (int kt = kt0; kt < n_k; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous V tile (and, at kt = 0, Q) is done
     load_tile<D>(kv, k + kv_base, k0, sk);
@@ -148,7 +156,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         float x = s[i][j] * scale;
         if (col >= sk) {
           x = neg_inf;  // past the last key: p = 0
-        } else if (causal && col > row + seq_off) {
+        } else if (causal && (col > row + seq_off ||
+                              (window > 0 && col <= row + seq_off - window))) {
           x = kMasked;
         }
         s[i][j] = x;
@@ -216,8 +225,8 @@ constexpr int smem_bytes() {
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int causal, float scale,
-           cudaStream_t stream) {
+           int hq, int hkv, int sq, int sk, int causal, int window,
+           float scale, cudaStream_t stream) {
   const int smem = smem_bytes<D>();
   auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -227,7 +236,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
-      causal != 0, scale);
+      causal != 0, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,12 +245,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 template <int D>
 int launch_typed(const void* q, const void* k, const void* v, void* o,
                  int b, int hq, int hkv, int sq, int sk, int causal,
-                 int is_bf16, float scale, cudaStream_t stream) {
+                 int window, int is_bf16, float scale, cudaStream_t stream) {
   if (is_bf16) {
-    return sm90::launch<D>(q, k, v, o, b, hq, hkv, sq, sk, causal, scale,
-                           stream);
+    return sm90::launch<D>(q, k, v, o, b, hq, hkv, sq, sk, causal, window,
+                           scale, stream);
   }
-  return launch<D>(q, k, v, o, b, hq, hkv, sq, sk, causal, scale, stream);
+  return launch<D>(q, k, v, o, b, hq, hkv, sq, sk, causal, window, scale,
+                   stream);
 }
 
 // The kernel of head size D and type: its registers per thread at launch
@@ -265,21 +275,25 @@ extern "C" {
 
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int b, int hq, int hkv, int sq, int sk, int d,
-                        int causal, int is_bf16, float scale, void* stream) {
+                        int causal, int window, int is_bf16, float scale,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (window < 0 || (window > 0 && !causal)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 16:
       return launch_typed<16>(q, k, v, o, b, hq, hkv, sq, sk, causal,
-                              is_bf16, scale, s);
+                              window, is_bf16, scale, s);
     case 32:
       return launch_typed<32>(q, k, v, o, b, hq, hkv, sq, sk, causal,
-                              is_bf16, scale, s);
+                              window, is_bf16, scale, s);
     case 64:
       return launch_typed<64>(q, k, v, o, b, hq, hkv, sq, sk, causal,
-                              is_bf16, scale, s);
+                              window, is_bf16, scale, s);
     case 128:
       return launch_typed<128>(q, k, v, o, b, hq, hkv, sq, sk, causal,
-                               is_bf16, scale, s);
+                               window, is_bf16, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,10 +3,11 @@
 // Included by flash_attention.cu, whose entry point flash_attention_fwd
 // launches it for bf16 inputs (f32 inputs keep the CUDA-core kernel
 // there).  It computes what that file's header states, with the same
-// rules: the end-aligned causal mask, masked scores of -1e30 (a row that
-// sees no key averages V), key columns >= Sk with p = 0, rows >= Sq not
-// written, p rounded to bf16 before P.V, f32 sums, and the output
-// acc / max(l, 1e-30) rounded to bf16.
+// rules: the end-aligned causal mask and its optional sliding window,
+// masked scores of -1e30 (a row that sees no key averages V), key
+// columns >= Sk with p = 0, rows >= Sq not written, p rounded to bf16
+// before P.V, f32 sums, and the output acc / max(l, 1e-30) rounded to
+// bf16.
 //
 // Design.  One CTA of 384 threads per (128 query rows, q head, batch),
 // the q tiles with the most k tiles first.  Warpgroups 0 and 1 consume,
@@ -19,10 +20,18 @@
 // 232.  A consumer computes S = Q.K^T (m64n128k16, A and B from shared
 // memory, both K-major), the online softmax in registers (a row lives in
 // 4 threads of the accumulator layout: two shuffles reduce it; the mask
-// is applied only on the tiles that cross the diagonal or the ragged
-// end), rescales its output accumulator, converts P to bf16 in place as
-// the A operand from registers, and adds P.V (m64nDk16, B = V from
-// shared memory, MN-major, so with the transpose bit).
+// is applied only on the tiles that cross the diagonal, the lower edge of
+// the window or the ragged end), rescales its output accumulator,
+// converts P to bf16 in place as the A operand from registers, and adds
+// P.V (m64nDk16, B = V from shared memory, MN-major, so with the
+// transpose bit).
+//
+// Tiles visited.  Under the causal mask a CTA stops at the last tile its
+// last row sees and, under a window, starts at the first tile its first
+// row sees (the tiles before it are masked for every row of the CTA; see
+// flash_attention.cu).  The ring counts from that first tile: visit i
+// (tile kt0 + i) uses stage i % kStages at parity (i / kStages) & 1, in
+// the producer and the consumers alike.
 //
 // Overlap.  A consumer issues S of tile t + 1 and P.V of tile t together
 // and runs the softmax of tile t + 1 while P.V is on the tensor cores.
@@ -385,7 +394,8 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // this thread, l its share of the running sum; returns in alpha the
 // factor that rescales the output accumulator.  `edge` tiles mask keys
 // past the last (p = 0) and, under the causal mask, past a row's
-// diagonal (-1e30); the others fold the scale into the exponent's FMA.
+// diagonal or, with a window, at or below row + seq_off - window (-1e30);
+// the others fold the scale into the exponent's FMA.
 // Maxima and sums go through four partials a row, so that the chains of
 // dependent instructions are short (two warpgroups leave an SM little
 // else to switch to).
@@ -395,7 +405,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
                                              int k0, int c_lane,
                                              const int (&rows)[2], int sk,
                                              int seq_off, int causal,
-                                             float scale_log2) {
+                                             int window, float scale_log2) {
   const float neg_inf = -__int_as_float(0x7f800000);
   float part[2][4];
   if (edge) {
@@ -409,7 +419,9 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
           float x = sc[4 * j + 2 * i + e] * scale_log2;
           if (col >= sk) {
             x = neg_inf;  // past the last key: p = 0
-          } else if (causal && col > rows[i] + seq_off) {
+          } else if (causal &&
+                     (col > rows[i] + seq_off ||
+                      (window > 0 && col <= rows[i] + seq_off - window))) {
             x = kMasked;
           }
           sc[4 * j + 2 * i + e] = x;
@@ -490,7 +502,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap to, int batch, int hq,
-                   int hkv, int sq, int sk, int causal, float scale_log2) {
+                   int hkv, int sq, int sk, int causal, int window,
+                   float scale_log2) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -512,11 +525,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int bkv = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int q0 = qt * kRows;
   const int seq_off = sk - sq;
-  int n_k = (sk + kKeys - 1) / kKeys;
+  int n_k = (sk + kKeys - 1) / kKeys;  // one past the last tile visited
+  int kt0 = 0;                         // the first tile visited
   if (causal && q0 + seq_off >= 0) {
-    // every row sees key 0, and no row sees past this tile
+    // every row sees a key, and no row sees past this tile
     n_k = min(n_k, (q0 + kRows - 1 + seq_off) / kKeys + 1);
+    // nor, under a window, before the first row's first key
+    if (window > 0) kt0 = max(0, q0 + seq_off - window + 1) / kKeys;
   }
+  const int visits = n_k - kt0;  // >= 1: the first row's diagonal tile
 
   if (threadIdx.x == kConsumers) {
     // the descriptors' first use need not wait for their fetch
@@ -546,9 +563,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int cb = 0; cb < T::kBlocks; ++cb) {
         tma_load(q_s + cb * T::kBlockBytes, &tq, bar_q, cb * T::kBox, q0, bh);
       }
-      for (int kt = 0; kt < n_k; ++kt) {
-        const int s = kt % kStages;
-        mbar_wait(bar_empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+      for (int i = 0; i < visits; ++i) {
+        const int s = i % kStages;
+        const int kt = kt0 + i;
+        mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(bar_k + 8 * s, T::kBytes);
 #pragma unroll
         for (int cb = 0; cb < T::kBlocks; ++cb) {
@@ -577,9 +595,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int rows[2] = {r0, r0 + 8};
     const int c_lane = 2 * (lane % 4);
     const uint32_t q_wg = q_s + wg * 64 * T::kSwizzle;
-    // a tile past the diagonal of some row of the CTA, or past the last key
+    // a tile past the diagonal of some row of the CTA, at or below the
+    // lower edge of some row's window, or past the last key
     auto edge = [&](int k0) {
-      return k0 + kKeys > sk || (causal && k0 + kKeys - 1 > q0 + seq_off);
+      return k0 + kKeys > sk ||
+             (causal && (k0 + kKeys - 1 > q0 + seq_off ||
+                         (window > 0 &&
+                          k0 <= q0 + kRows - 1 + seq_off - window)));
     };
 
     float acc[D / 2], sc[64], alpha[2];
@@ -595,7 +617,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the two warpgroups take turns to issue their products (named
     // barriers 1 + wg), so that one's softmax runs beside the other's
     // products; warpgroup 1 lets warpgroup 0 go first
-    const int turns = n_k + 1;
+    const int turns = visits + 1;
     int turn = 0;
     auto my_turn = [&]() { named_sync(1 + wg, kConsumers); };
     auto end_turn = [&]() {
@@ -614,14 +636,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     end_turn();
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax_tile(sc, m, l, alpha, edge(0), 0, c_lane, rows, sk, seq_off,
-                 causal, scale_log2);
+    softmax_tile(sc, m, l, alpha, edge(kt0 * kKeys), kt0 * kKeys, c_lane,
+                 rows, sk, seq_off, causal, window, scale_log2);
     pack_p(pa, sc);
-    for (int kt = 1; kt < n_k; ++kt) {
-      const int s = kt % kStages;
-      const int sp = (kt - 1) % kStages;  // the stage of P's tile
-      mbar_wait(bar_k + 8 * s, (kt / kStages) & 1);
-      mbar_wait(bar_v + 8 * sp, ((kt - 1) / kStages) & 1);
+    for (int i = 1; i < visits; ++i) {
+      const int kt = kt0 + i;
+      const int s = i % kStages;
+      const int sp = (i - 1) % kStages;  // the stage of P's tile
+      mbar_wait(bar_k + 8 * s, (i / kStages) & 1);
+      mbar_wait(bar_v + 8 * sp, ((i - 1) / kStages) & 1);
       my_turn();
       issue_qk<D>(sc, q_wg, k_s + s * T::kBytes);
       issue_pv<D>(acc, pa, v_s + sp * T::kBytes);
@@ -629,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<1>();  // S is in, P.V may still run
       fence_regs(sc);
       softmax_tile(sc, m, l, alpha, edge(kt * kKeys), kt * kKeys, c_lane,
-                   rows, sk, seq_off, causal, scale_log2);
+                   rows, sk, seq_off, causal, window, scale_log2);
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(pa);
@@ -644,8 +667,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       pack_p(pa, sc);
     }
-    const int sp = (n_k - 1) % kStages;
-    mbar_wait(bar_v + 8 * sp, ((n_k - 1) / kStages) & 1);
+    const int sp = (visits - 1) % kStages;
+    mbar_wait(bar_v + 8 * sp, ((visits - 1) / kStages) & 1);
     my_turn();
     issue_pv<D>(acc, pa, v_s + sp * T::kBytes);
     end_turn();
@@ -749,8 +772,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int causal, float scale,
-           cudaStream_t stream) {
+           int hq, int hkv, int sq, int sk, int causal, int window,
+           float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, to;
@@ -766,7 +789,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (sq + kRows - 1) / kRows * hq * b;
   kernel<<<grid, kThreads, Tile<D>::kSmem, stream>>>(
-      tq, tk, tv, to, b, hq, hkv, sq, sk, causal, scale * kLog2e);
+      tq, tk, tv, to, b, hq, hkv, sq, sk, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,14 @@ the TPU kernel's rules:
 - the causal mask is aligned to the end: query row i sees keys
   ``<= i + Sk - Sq``.
 
+``window=`` adds the sliding window of the reference's blocked
+attention (``repro/models/layers.py:blocked_attention_xla``, which
+serves starcoder2's ``window=4096``; the TPU kernel has no window): row
+i also sees no key ``<= i + Sk - Sq - window``, masked with ``-1e30``
+as well.  It is taken only with the causal mask, as the reference uses
+it, and must be positive; ``None`` is no window.  Both kernels skip the
+tiles that lie wholly below a CTA's window.
+
 Unlike the TPU kernel, which returns NaN when Sq or Sk is not a
 multiple of its tile, the CUDA kernel masks the ragged edge.
 
@@ -54,7 +62,7 @@ def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                        ctypes.c_float, p]
+                                        i, ctypes.c_float, p]
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_kernel_info.argtypes = [i, i, p, p]
     lib.flash_attention_kernel_info.restype = ctypes.c_int
@@ -75,6 +83,19 @@ def kernel_info(dtype: torch.dtype, d: int) -> dict:
     name = ("flash_fwd_sm90 (bf16, wgmma + TMA)" if bf16
             else "flash_fwd_kernel (f32, CUDA cores)")
     return dict(kernel=name, registers=regs.value, shared_bytes=smem.value)
+
+
+def _check_window(causal: bool, window) -> int:
+    """The kernel's ``window`` argument: 0 for none."""
+    if window is None:
+        return 0
+    if int(window) != window or window <= 0:
+        raise ValueError(f"flash_attention: window must be a positive "
+                         f"int or None, got {window!r}")
+    if not causal:
+        raise ValueError("flash_attention: a window is taken only with "
+                         "the causal mask")
+    return int(window)
 
 
 def _check(q, k, v) -> None:
@@ -100,12 +121,14 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window=None) -> torch.Tensor:
     """q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D], Hq % Hkv == 0 -> [B,Hq,Sq,D] in
-    q's type (float32 or bfloat16)."""
+    q's type (float32 or bfloat16); ``window``: the causal mask's
+    sliding window, or None."""
     _check(q, k, v)
+    win = _check_window(causal, window)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     b, hq, sq, d = q.shape
@@ -126,7 +149,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            k.shape[1], sq, k.shape[2], d, int(bool(causal)),
+            k.shape[1], sq, k.shape[2], d, int(bool(causal)), win,
             int(q.dtype == torch.bfloat16), 1.0 / (d ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with "
@@ -139,10 +162,13 @@ flash_attention.launches = 0
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          window=None) -> torch.Tensor:
     """Plain version of :func:`flash_attention`: the whole score matrix
-    at once, with the kernel's ``-1e30`` mask, its cast of p to V's type
-    and its f32 accumulation.  GQA by a grouped einsum, no repeat."""
+    at once (for small shapes: it holds B Hq Sq Sk floats), with the
+    kernel's ``-1e30`` mask, its cast of p to V's type and its f32
+    accumulation.  GQA by a grouped einsum, no repeat."""
+    _check_window(causal, window)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
@@ -150,7 +176,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         cols = torch.arange(sk, device=q.device)[None, :]
-        s = torch.where(cols <= rows, s, NEG_INF)
+        visible = cols <= rows
+        if window is not None:
+            visible &= cols > rows - window
+        s = torch.where(visible, s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True)
     acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())

@@ -21,16 +21,20 @@ __all__ = ["attention", "decode_attention", "IMPLS"]
 IMPLS = ("kernel", "plain")
 
 
-def attention(q, k, v, *, causal: bool = True, impl: str = "kernel",
-              device=None) -> torch.Tensor:
-    """GQA attention; q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D]."""
+def attention(q, k, v, *, causal: bool = True, window=None,
+              impl: str = "kernel", device=None) -> torch.Tensor:
+    """GQA attention; q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D]; ``window``: the
+    causal mask's sliding window (``impl="plain"`` has none, as
+    ``gqa_ref``)."""
     if impl not in IMPLS:
         raise ValueError(f"attention: impl must be one of {IMPLS}, got "
                          f"{impl!r}")
     device = resolve_device(device)
     q, k, v = (torch.as_tensor(t).to(device) for t in (q, k, v))
     if impl == "kernel":
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if window is not None:
+        raise ValueError("attention: impl='plain' (gqa_ref) takes no window")
     return gqa_ref(q, k, v, causal=causal)
 
 

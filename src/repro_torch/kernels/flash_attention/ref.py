@@ -53,5 +53,9 @@ def decode_ref(q, k, v, kv_len, window=None):
     logits = torch.where(mask, logits, -torch.inf)
     probs = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = probs / probs.sum(-1, keepdim=True)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(q.dtype), v)
+    # p in q's type, then promoted with the cache's, as jnp.einsum does
+    # (a bf16 model may decode against an f32 cache)
+    dt = torch.promote_types(q.dtype, v.dtype)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(q.dtype).to(dt),
+                       v.to(dt))
     return out.reshape(b, hq, q.shape[2], d)

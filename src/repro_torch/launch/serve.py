@@ -69,6 +69,7 @@ import itertools
 import sys
 import threading
 import time
+import warnings
 from collections import deque
 from typing import Any, Dict, List, Optional
 
@@ -1097,12 +1098,16 @@ class GraphGateway:
 # ---------------------------------------------------------------------------
 def main(argv: Optional[List[str]] = None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if any(a == "--arch" or a.startswith("--arch=") for a in argv):
+        warnings.warn(
+            "the LM serving demo moved to repro_torch.launch.lm_demo; "
+            "`python -m repro_torch.launch.serve --arch ...` forwards there "
+            "and will be removed", DeprecationWarning, stacklevel=2)
+        from repro_torch.launch import lm_demo
+        return lm_demo.main(argv)
+
     ap = argparse.ArgumentParser(
         description="streaming graph-serving gateway demo")
-    if any(a == "--arch" or a.startswith("--arch=") for a in argv):
-        ap.error("--arch: the LM serving demo (repro.launch.lm_demo) "
-                 "belongs to the model zoo, which repro_torch has not "
-                 "ported")
     ap.add_argument("--app", default="BFS")
     ap.add_argument("--config", default="DG1")
     ap.add_argument("--requests", type=int, default=24)

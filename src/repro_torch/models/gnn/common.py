@@ -27,7 +27,8 @@ class MLPStack(nn.Module):
 
 def init_mlp_stack(dims: Sequence[int], *, generator: torch.Generator,
                    device) -> MLPStack:
-    return MLPStack([L.init_dense(dims[i], dims[i + 1], generator=generator,
+    return MLPStack([L.init_dense(dims[i], dims[i + 1], use_bias=True,
+                                  dtype=torch.float32, generator=generator,
                                   device=device)
                      for i in range(len(dims) - 1)])
 

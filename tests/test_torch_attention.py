@@ -9,7 +9,10 @@ softmax against one pass), and bf16 to atol=1e-2 (p rounded to bf16 at
 another running max; 0.0039 is the largest difference seen, on outputs
 of up to 3.0).  Shapes that are not a multiple of the TPU tile
 make the Pallas kernel return NaN; there the port is held against
-``gqa_ref``.
+``gqa_ref``.  The Pallas kernel has no sliding window, so the windowed
+wrapper and plain version are held against the reference's
+``blocked_attention_xla(window=)``, which serves the sliding-window
+models (f32, atol=1e-5: one pass against chunks).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,7 @@ import torch
 from repro.kernels.flash_attention import decode_ref as j_decode_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention import gqa_ref as j_gqa_ref
+from repro.models.layers import blocked_attention_xla as j_blocked
 from repro_torch.kernels.flash_attention import (attention, decode_attention,
                                                  decode_ref, flash_attention,
                                                  flash_attention_plain)
@@ -135,3 +139,41 @@ def test_entry_points_without_device_need_cuda():
         attention(q, k, v)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode_attention(q[:, :, :1], k, v, 8)
+
+
+# (B, Hq, Hkv, Sq, Sk, D, window): a window that binds, one wider than
+# Sk, a suffix Sq < Sk, GQA groups 1 and 3, head sizes 16 and 64
+WINDOW_CASES = [(1, 2, 2, 96, 96, 16, 16), (2, 6, 2, 80, 80, 64, 33),
+                (1, 3, 1, 40, 130, 16, 50), (1, 2, 1, 64, 64, 32, 1),
+                (1, 4, 2, 64, 64, 16, 1000)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window", WINDOW_CASES)
+def test_window_matches_the_reference_blocked_attention(b, hq, hkv, sq, sk,
+                                                        d, window):
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, sq + window)
+    # the reference takes one head count: K/V repeated for it alone
+    jk, jv = (np.repeat(a, hq // hkv, axis=1) for a in (k, v))
+    want = np.asarray(j_blocked(jnp.asarray(q), jnp.asarray(jk),
+                                jnp.asarray(jv), causal=True, window=window,
+                                q_chunk=32, k_chunk=32))
+    got = flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    # the wrapper and the public op take the plain version on the CPU
+    assert torch.equal(_port((q, k, v), window=window), got)
+    if window < sk:
+        assert not np.allclose(got.numpy(), _port((q, k, v)).numpy())
+
+
+def test_wrapper_rejects_a_bad_window():
+    q, k, v = map(torch.from_numpy, _qkv(1, 2, 1, 16, 16, 16, 5))
+    for bad in (0, -3, 2.5):
+        with pytest.raises(ValueError, match="window must be a positive"):
+            flash_attention(q, k, v, window=bad)
+        with pytest.raises(ValueError, match="window must be a positive"):
+            flash_attention_plain(q, k, v, window=bad)
+    with pytest.raises(ValueError, match="only with the causal mask"):
+        flash_attention(q, k, v, causal=False, window=8)
+    with pytest.raises(ValueError, match="takes no window"):
+        attention(q, k, v, window=8, impl="plain", device="cpu")

@@ -15,7 +15,9 @@ P > 1 and the mean (another order of the sum), and its table-batched call
 bit-equal to single-table calls at any P (the same code per bag); K4 to atol 2e-3 in f32
 and, in bf16, to one bf16 step of the output (rtol 2**-7) plus atol 1e-2
 (online softmax against one pass, p rounded to bf16 at another running
-max).
+max), with and without the sliding window; the reduced LMs' prefill
+with K4 against prefill with its plain version (``blocked_attention``)
+to the CPU parity tests' bounds.
 """
 import numpy as np
 import pytest
@@ -1282,3 +1284,101 @@ def test_partition_and_sampler_accept_a_graph_on_the_card(cuda_device):
             assert np.array_equal(x.src_global, y.src_global)
             assert np.array_equal(x.edge_mask, y.edge_mask)
             assert np.array_equal(x.seeds, y.seeds)
+
+
+# K4 with a sliding window: (B, Hq, Hkv, Sq, Sk, window).  Windows that
+# skip many tiles (the first visited tile's stage is not 0), the window
+# of one key, one wider than Sk, a suffix Sq < Sk, rows that see no key
+# (Sq > Sk), ragged Sq and Sk, GQA groups 1, 3 and 9.
+WINDOW_CASES = [(1, 2, 2, 1000, 1000, 200), (2, 6, 2, 300, 700, 128),
+                (1, 9, 1, 129, 257, 1), (1, 4, 4, 513, 513, 5000),
+                (1, 2, 1, 200, 72, 30), (1, 2, 2, 2048, 2048, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,window", WINDOW_CASES,
+                         ids=["1000-w200", "300x700-w128-g3", "129x257-w1-g9",
+                              "513-w5000", "200x72-sq>sk-w30", "2048-w300"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_matches_plain_on_the_card(
+        cuda_device, b, hq, hkv, sq, sk, window, d, dtype):
+    """Both kernels with the window against the plain version: f32 to
+    atol 2e-3, bf16 to one bf16 step plus 1e-2 (as without a window)."""
+    rng = np.random.default_rng(d + sq + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, dtype)
+        for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == launches + 1
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    tol = (dict(rtol=0.0, atol=2e-3) if dtype == torch.float32
+           else BF16_TOL)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_window_is_refused_without_the_causal_mask(
+        cuda_device):
+    rng = np.random.default_rng(3)
+    q, k, v = _bf16_qkv(cuda_device, rng, 1, 2, 1, 64, 64, 64)
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k, v, causal=False, window=16)
+    assert flash_attention.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "command-r-35b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_prefill_launches_k4_once_per_layer(cuda_device, arch, dtype):
+    """The reduced LM's prefill on the card: one K4 launch per layer, and
+    the logits and caches of prefill with K4 against prefill with its
+    plain version (``blocked_attention``), a 48-token prompt past
+    starcoder2's reduced window: f32 to 1e-4, bf16 logits to 2e-2 and
+    caches to two bf16 steps plus 3e-2 (the CPU tests' bounds)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+    cfg = dataclasses.replace(get_arch(arch).reduced_cfg, param_dtype=dtype)
+    params = init_lm(cfg, torch.Generator(cuda_device).manual_seed(0),
+                     cuda_device)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 49))
+    launches = flash_attention.launches
+    got, (gk, gv) = prefill(cfg, params, toks[:, :48], device=cuda_device)
+    assert flash_attention.launches == launches + cfg.n_layers
+    want, (wk, wv) = prefill(cfg, params, toks[:, :48], impl="plain",
+                             device=cuda_device)
+    assert flash_attention.launches == launches + cfg.n_layers
+    f32 = dtype == "float32"
+    torch.testing.assert_close(got, want, rtol=1e-4 if f32 else 0.0,
+                               atol=1e-4 if f32 else 2e-2)
+    cache_tol = (dict(rtol=1e-5, atol=1e-5) if f32
+                 else dict(rtol=2**-6, atol=3e-2))
+    torch.testing.assert_close(gk.float(), wk.float(), **cache_tol)
+    torch.testing.assert_close(gv.float(), wv.float(), **cache_tol)
+    # decode the 49th token against the prefill's cache
+    shape = (cfg.n_layers, 2, cfg.n_kv_heads, 64, cfg.d_head)
+    kc = torch.zeros(shape, dtype=cfg.dtype, device=cuda_device)
+    vc = torch.zeros_like(kc)
+    kc[:, :, :, :48], vc[:, :, :, :48] = gk, gv
+    lg, _ = decode_step(cfg, params, toks[:, 48:], (kc, vc), 48,
+                        device=cuda_device)
+    full, _ = prefill(cfg, params, toks, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lg[:, 0], full, rtol=1e-4 if f32 else 0.0,
+                               atol=1e-4 if f32 else 2e-2)
+
+
+@pytest.mark.cuda
+def test_lm_demo_serves_on_the_card(cuda_device, capsys):
+    from repro_torch.launch import lm_demo
+    rec = lm_demo.main(["--width", "reduced", "--batch", "2", "--prompt-len",
+                        "48", "--gen", "4"])
+    assert rec["k4_launches"] == 2 and rec["peak_bytes"] > 0
+    assert rec["token_ids"].shape == (2, 5)
+    assert torch.isfinite(rec["last_logits"]).all()
+    assert "GB" in capsys.readouterr().out

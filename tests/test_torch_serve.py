@@ -339,10 +339,16 @@ class TestLifecycleInstrumentation:
 
 
 class TestEntryPoint:
-    def test_arch_is_rejected_with_the_reason(self, capsys):
-        with pytest.raises(SystemExit):
+    def test_arch_forwards_to_lm_demo_with_deprecation(self, monkeypatch):
+        # the reference's rule (tests/test_serve.py:218-226): --arch goes
+        # to the LM demo with its argv unchanged, and warns
+        from repro_torch.launch import lm_demo
+        called = {}
+        monkeypatch.setattr(lm_demo, "main",
+                            lambda argv: called.setdefault("argv", argv))
+        with pytest.warns(DeprecationWarning, match="lm_demo"):
             serve.main(["--arch", "starcoder2-7b", "--gen", "1"])
-        assert "model zoo" in capsys.readouterr().err
+        assert called["argv"] == ["--arch", "starcoder2-7b", "--gen", "1"]
 
     def test_demo_serves_on_the_cpu(self, capsys):
         serve.main(["--requests", "6", "--pool", "3", "--device", "cpu"])
