@@ -254,7 +254,30 @@ script exits non-zero:
    window), counted from 0: prefill at B=1, S=2,048 and 8 decode steps
    with 4 K4 launches in the timed prefill (8 in the call), then the
    served prefill against ``blocked_attention`` as in (b).
-8. print the kernel table as one JSON line, then the last line
+8. training (no kernel runs here: K3 and K4 have no
+   backward, and both packages train through the plain embedding bag
+   and ``blocked_attention``).  (a) DLRM-MLPerf's train_batch at full
+   widths with every table capped at 4,000,000 rows (24,063,992 rows:
+   49.3 GB of params, grads and f32 moments; seed 0), B = 65,536
+   ``dlrm_batch`` of (seed, step), dense AdamW at lr 1e-3 through
+   ``train_loop``: one untimed step, then 4 timed; ms/step (median),
+   samples/s, peak ``max_memory_allocated``, the bytes bound of the
+   grads, the clip and AdamW (9 f32 copies of the parameters at 3.35
+   TB/s); every leaf changed, finite losses and grad norms, no K3 call;
+   one profiled step (busy share, top ops, no K3 op); the largest
+   table's gradient nonzero on exactly the rows the batch looked up.
+   (b) starcoder2-7b at full width and 8 of its 32 layers (bf16 from
+   seed 0), train_4k's 4,096 tokens, B = 4 as 4 microbatches of 1
+   accumulated in f32, remat on, one untimed and 3 timed steps on one
+   repeated batch: the loss must fall; ms/step, tokens/s, the model
+   FLOPs share of 989 TFLOP/s (6 N tokens plus 12 L H dh per visible
+   pair), peak memory, one profiled step (no K4 op, no K4 call).  (c)
+   the reduced DLRM (f32) and starcoder2-7b (bf16 as configured, and
+   f32): 3 steps on the card against 3 on the CPU from the same
+   parameters (``TRAIN_TOL``), and a DLRM run killed after 4 steps,
+   resumed through ``checkpoint_dir`` under ``build/``, against an
+   uninterrupted one.
+9. print the kernel table as one JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The full record also goes to ``--out``.
@@ -365,6 +388,51 @@ LM_CR_SERVE = dict(batch=1, prompt_len=2048, gen=8)
 #: logits of up to 8.4 (NVIDIA H100 80GB HBM3, 700.00 W; bf16 rounds p
 #: and every activation at other places in the two runs, over 32 layers)
 LM_LOGIT_TOL = 0.15
+#: Phase 8, training.  DLRM-MLPerf's train_batch: full widths, every
+#: table capped at TRAIN_DLRM_MAX_ROWS (params, grads and the two f32
+#: moments of dense AdamW over 24,063,992 rows: 49.3 GB; 16 M rows would
+#: need 172 GB), B = dlrm_mlperf.TRAIN_CELLS["train_batch"] (65,536),
+#: 1 untimed + TRAIN_DLRM_TIMED steps
+TRAIN_SEED = 0
+TRAIN_DLRM_MAX_ROWS = 4_000_000
+TRAIN_DLRM_TIMED = 4
+#: starcoder2-7b at full width and TRAIN_LM_LAYERS of its 32 layers (bf16
+#: params and grads, f32 moments and accumulators: 23.6 GB; 32 layers
+#: would need 86 GB), train_4k's sequence, TRAIN_LM_BATCH sequences as
+#: TRAIN_LM_MICRO microbatches, remat on, 1 untimed + TRAIN_LM_TIMED
+#: steps on one repeated batch
+TRAIN_LM_LAYERS = 8
+TRAIN_LM_SEQ = 4096
+TRAIN_LM_BATCH = 4
+TRAIN_LM_MICRO = 4
+TRAIN_LM_TIMED = 3
+#: H100 SXM dense bf16 peak, from NVIDIA's H100 datasheet
+BF16_FLOPS_PER_S = 989e12
+#: (c): reduced configs, steps on the card against steps on the CPU, and
+#: a run killed after TRAIN_KILL_AT steps resumed from its checkpoint.
+#: Tolerances, f32: loss and grad norm rtol 1e-5, parameters rtol 1e-5
+#: and atol 1e-4, a third of one step at the LM cell's lr of 3e-4 (AdamW
+#: divides a gradient by its root mean square, so where a gradient is
+#: near 0 a last-bit difference of the two devices' sums moves the
+#: update by up to lr; largest seen 3.4e-5, on the reduced starcoder2-7b
+#: in f32, NVIDIA H100 80GB HBM3, 700.00 W); bf16: loss atol 1e-3, grad
+#: norm rtol 2e-3, parameters atol 4e-3 (one or two bf16 steps, the CPU
+#: tests' bound against the reference; seen 1.5e-3).  That atol is more
+#: than 3 steps move a weight, so the parameters' movement from their
+#: start is held too, as a share of its norm: f32 1e-3 (seen 1.2e-4),
+#: bf16 0.1 (seen 0.035; a bf16 update at half the lr shows 0.77 on the
+#: CPU, a skipped one 1.0); and every leaf the CPU moved, the card moved
+TRAIN_CHECK_STEPS = 3
+TRAIN_RESUME_STEPS = 6
+TRAIN_KILL_AT = 4
+TRAIN_TOL = {torch.float32: dict(loss=dict(rtol=1e-5, atol=0.0),
+                                 grad_norm=dict(rtol=1e-5, atol=0.0),
+                                 params=dict(rtol=1e-5, atol=1e-4),
+                                 movement=1e-3),
+             torch.bfloat16: dict(loss=dict(rtol=0.0, atol=1e-3),
+                                  grad_norm=dict(rtol=2e-3, atol=0.0),
+                                  params=dict(rtol=0.0, atol=4e-3),
+                                  movement=0.1)}
 #: DLRM serving: timed requests per cell, after one untimed warm-up each
 DLRM_REQUESTS = {"serve_p99": 8, "serve_bulk": 4, "retrieval_cand": 4}
 #: the table-batched K3's launch variants: (items per warp, threads per
@@ -1125,6 +1193,360 @@ def lm_phase(dev) -> tuple:
     del params, served, got, want
     free_device_memory()
     return record, sc2_launches, cr_launches
+
+
+def _leaf_samples(params) -> dict:
+    """Up to 2**20 evenly strided elements of every parameter, copied."""
+    out = {}
+    for name, p in params.named_parameters():
+        flat = p.detach().reshape(-1)
+        out[name] = flat[::max(1, flat.numel() >> 20)].clone()
+    return out
+
+
+def _unchanged(params, before: dict) -> list:
+    now = _leaf_samples(params)
+    return [n for n, t in before.items() if torch.equal(t, now[n])]
+
+
+def _timed_rows(hist: list, timed: int, what: str) -> dict:
+    """The median seconds of the last ``timed`` rows of a history, after
+    checking every row's loss and grad norm are finite."""
+    for row in hist:
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise AssertionError(f"train {what}: non-finite metrics {row}")
+    secs = [r["seconds"] for r in hist[-timed:]]
+    log(f"train {what}: losses {[round(r['loss'], 6) for r in hist]} "
+        f"grad_norms {[round(r['grad_norm'], 6) for r in hist]} "
+        f"seconds {[round(r['seconds'], 6) for r in hist]}")
+    return dict(ms=statistics.median(secs) * 1e3, step_ms=[s * 1e3 for s in
+                                                          secs],
+                losses=[r["loss"] for r in hist],
+                grad_norms=[r["grad_norm"] for r in hist])
+
+
+def _kernel_ops(prof: dict) -> dict:
+    """K3's and K4's device ops in a profiled step (must be none)."""
+    names = prof.get("counts", {})
+    return {name: n for name, n in names.items()
+            if "embag" in name or "flash_fwd" in name}
+
+
+def _movement(got_params, want_params, start) -> dict:
+    """Each run's movement from the parameters ``start`` it began at
+    (after - start, in f32): ``rel``, the norm of the two movements'
+    difference over the norm of ``want``'s, over all leaves; the count
+    of leaves ``want`` moved; and those of them ``got`` left as they
+    were."""
+    diff2 = want2 = 0.0
+    moved, missing = 0, []
+    for (n, a), (_, b), (_, s0) in zip(got_params.named_parameters(),
+                                       want_params.named_parameters(),
+                                       start.named_parameters()):
+        s0 = s0.detach().double().cpu()
+        da = a.detach().double().cpu() - s0
+        db = b.detach().double().cpu() - s0
+        diff2 += float(((da - db) ** 2).sum())
+        want2 += float((db ** 2).sum())
+        if db.any():
+            moved += 1
+            if not da.any():
+                missing.append(n)
+    return dict(rel=(diff2 / want2) ** 0.5 if want2 else float("inf"),
+                leaves_moved=moved, not_moved=missing)
+
+
+def _same_training(what, got_hist, want_hist, got_params, want_params,
+                   dtype, start) -> dict:
+    """Two runs of the same steps from the parameters ``start``: losses,
+    grad norms, parameters and the parameters' movement from ``start``
+    within TRAIN_TOL of ``dtype``, and every leaf that ``want`` moved
+    moved in ``got`` too; figures logged before any check."""
+    tol = TRAIN_TOL[dtype]
+    errs = dict(loss=max(abs(a["loss"] - b["loss"])
+                         for a, b in zip(got_hist, want_hist)),
+                grad_norm=max(abs(a["grad_norm"] - b["grad_norm"])
+                              for a, b in zip(got_hist, want_hist)))
+    worst = 0.0
+    for (n, a), (_, b) in zip(got_params.named_parameters(),
+                              want_params.named_parameters()):
+        worst = max(worst, float((a.detach().float().cpu()
+                                  - b.detach().float().cpu()).abs().max()))
+    errs["params"] = worst
+    move = _movement(got_params, want_params, start)
+    errs["movement"] = move["rel"]
+    bitwise = all(torch.equal(a.detach().cpu(), b.detach().cpu())
+                  for a, b in zip(got_params.parameters(),
+                                  want_params.parameters()))
+    log(f"train {what}: max_abs_err {json.dumps(errs)} bit_identical="
+        f"{bitwise} steps={len(got_hist)} leaves_moved="
+        f"{move['leaves_moved']} not_moved={move['not_moved']}")
+    if len(got_hist) != len(want_hist):
+        raise AssertionError(f"train {what}: {len(got_hist)} steps against "
+                             f"{len(want_hist)}")
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([r[key] for r in got_hist],
+                                   [r[key] for r in want_hist], **tol[key],
+                                   err_msg=f"train {what}: {key}")
+    for (n, a), (_, b) in zip(got_params.named_parameters(),
+                              want_params.named_parameters()):
+        torch.testing.assert_close(a.detach().float().cpu(),
+                                   b.detach().float().cpu(),
+                                   **tol["params"], msg=f"train {what}: {n}")
+    if not move["leaves_moved"] or move["not_moved"]:
+        raise AssertionError(f"train {what}: {move['leaves_moved']} leaves "
+                             f"moved, of them not moved in the run checked: "
+                             f"{move['not_moved']}")
+    if not move["rel"] <= tol["movement"]:
+        raise AssertionError(f"train {what}: the parameters' movement "
+                             f"differs by {move['rel']} of its norm, limit "
+                             f"{tol['movement']}")
+    return dict(max_abs_err=errs, bit_identical=bitwise,
+                leaves_moved=move["leaves_moved"])
+
+
+def _dlrm_train(dev) -> dict:
+    """(a) DLRM-MLPerf's train_batch at full widths, tables capped."""
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.base import dlrm_train_step, trainable
+    from repro_torch.kernels.embedding_bag import embag
+    from repro_torch.models.dlrm import dlrm_loss, init_dlrm
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoopConfig, train_loop
+    cfg = dlrm_mlperf.capped(dlrm_mlperf.CFG, TRAIN_DLRM_MAX_ROWS)
+    b = dlrm_mlperf.TRAIN_CELLS["train_batch"]
+    params = init_dlrm(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED), dev)
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats(dev)  # the peak keeps what is held
+    n = sum(p.numel() for p in params.parameters())
+    log(f"train {cfg.name}: {n} parameters, {len(params.tables)} tables of "
+        f"up to {max(t.shape[0] for t in params.tables)} rows, "
+        f"{4 * n * 4} bytes of params, grads and moments, B={b}")
+    before = _leaf_samples(params)
+    step = dlrm_train_step(cfg, device=dev)
+    embag.launches = 0
+    _, _, hist = train_loop(
+        step, params,
+        lambda s: dlrm_mlperf.training_batch(cfg, s, batch=b,
+                                             seed=TRAIN_SEED, device=dev),
+        TrainLoopConfig(total_steps=1 + TRAIN_DLRM_TIMED), opt_state=opt)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = _timed_rows(hist, TRAIN_DLRM_TIMED, cfg.name)
+    # the gradients, the clip and AdamW read and write 9 f32 copies of
+    # the parameters: grads written, read by the norm and by the update;
+    # p, m, v read and written
+    moved = 9 * 4 * n
+    rec.update(n_params=n, batch=b, peak_bytes=peak,
+               samples_per_s=b / (rec["ms"] / 1e3), bound_bytes=moved,
+               bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+               k3_launches=embag.launches)
+    log(f"train {cfg.name}: ms/step={rec['ms']:.4f} samples/s="
+        f"{rec['samples_per_s']:.1f} peak={peak / 1e9:.3f} GB "
+        f"bound_ms={rec['bound_ms']:.4f} (bytes: {moved} of grads, clip and "
+        f"AdamW at {HBM_BYTES_PER_S / 1e12} TB/s) "
+        f"bound_share={rec['bound_ms'] / rec['ms']:.3f} "
+        f"K3 launches={embag.launches}")
+    stale = _unchanged(params, before)
+    if stale:
+        raise AssertionError(f"train {cfg.name}: leaves unchanged {stale}")
+    batch = dlrm_mlperf.training_batch(cfg, 1 + TRAIN_DLRM_TIMED, batch=b,
+                                       seed=TRAIN_SEED, device=dev)
+    rec["profile"] = profile_request(
+        f"train {cfg.name} step", lambda: step(params, opt, batch))
+    k3_ops = _kernel_ops(rec["profile"])
+    if embag.launches or k3_ops:
+        raise AssertionError(f"train {cfg.name}: K3 launched in training "
+                             f"({embag.launches} calls, ops {k3_ops})")
+    # the largest table's gradient: nonzero on exactly the rows looked up
+    leaves = trainable(params)
+    big = max(range(cfg.n_sparse), key=lambda f: params.tables[f].shape[0])
+    table = leaves[f"table_{big}"]
+    (grad,) = torch.autograd.grad(
+        dlrm_loss(cfg, params, batch, impl="plain", device=dev), [table])
+    nonzero = (grad != 0).any(dim=1)
+    looked_up = torch.zeros_like(nonzero)
+    looked_up[batch["sparse"][:, big].reshape(-1).long()] = True
+    rows = int(looked_up.sum())
+    if not torch.equal(nonzero, looked_up):
+        raise AssertionError(
+            f"train {cfg.name}: table {big}'s gradient is nonzero on "
+            f"{int(nonzero.sum())} rows, {rows} were looked up, "
+            f"{int((nonzero != looked_up).sum())} differ")
+    log(f"train {cfg.name}: table {big} ({table.shape[0]} rows) gradient "
+        f"nonzero on exactly the {rows} rows looked up; every leaf changed")
+    rec.update(grad_rows=rows, grad_table=big)
+    del params, opt, grad, leaves, table, batch, step
+    free_device_memory()
+    return rec
+
+
+def _lm_train(dev) -> dict:
+    """(b) starcoder2-7b at full width and TRAIN_LM_LAYERS layers."""
+    import dataclasses as dc
+    from repro_torch.configs import starcoder2_7b
+    from repro_torch.configs.base import lm_train_step
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoopConfig, train_loop
+    cfg = dc.replace(starcoder2_7b.CFG, n_layers=TRAIN_LM_LAYERS)
+    b, s, mb = TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO
+    params = init_lm(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED), dev)
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = cfg.n_params
+    log(f"train {cfg.name}: full width, {cfg.n_layers} of "
+        f"{starcoder2_7b.CFG.n_layers} layers (depth the only cut), {n} "
+        f"parameters, B={b} as {mb} microbatches, S={s}, remat={cfg.remat}")
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(0, b, s, cfg.vocab).items()}
+    step = lm_train_step(cfg, b, s, microbatches=mb, device=dev)
+    flash_attention.launches = 0
+    _, _, hist = train_loop(step, params, lambda i: batch,
+                            TrainLoopConfig(total_steps=1 + TRAIN_LM_TIMED),
+                            opt_state=opt)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = _timed_rows(hist, TRAIN_LM_TIMED, cfg.name)
+    tokens = b * s
+    # model FLOPs: 6 N per token (N counts the tied embedding once, for
+    # the logits), plus the attention's 12 H dh per visible (query, key)
+    # pair and layer (4 forward, 8 backward); remat's recompute not counted
+    window = cfg.window or s
+    pairs = b * sum(min(i + 1, window) for i in range(s))
+    flops = 6 * n * tokens + 12 * cfg.n_layers * cfg.n_heads * cfg.d_head \
+        * pairs
+    rec.update(n_params=n, tokens=tokens, peak_bytes=peak,
+               tokens_per_s=tokens / (rec["ms"] / 1e3), model_flops=flops,
+               mfu=flops / (rec["ms"] / 1e3) / BF16_FLOPS_PER_S,
+               k4_launches=flash_attention.launches)
+    log(f"train {cfg.name}: ms/step={rec['ms']:.4f} tokens/s="
+        f"{rec['tokens_per_s']:.1f} model_flops={flops:.6e} (6*N*tokens + "
+        f"12*L*H*dh*visible pairs) mfu={rec['mfu']:.4f} of "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s peak={peak / 1e9:.3f} GB "
+        f"K4 launches={flash_attention.launches}")
+    # the cell's AdamW (lr 3e-4, no warm-up) moves every weight by about
+    # lr in its first step, which at this width raises the loss; on one
+    # repeated batch it must then fall over the timed steps
+    timed = rec["losses"][-TRAIN_LM_TIMED:]
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"train {cfg.name}: the loss did not fall over "
+                             f"the timed steps on one repeated batch: "
+                             f"{rec['losses']}")
+    rec["profile"] = profile_request(f"train {cfg.name} step",
+                                     lambda: step(params, opt, batch))
+    k4_ops = _kernel_ops(rec["profile"])
+    if flash_attention.launches or k4_ops:
+        raise AssertionError(f"train {cfg.name}: K4 launched in training "
+                             f"({flash_attention.launches} calls, ops "
+                             f"{k4_ops})")
+    del params, opt, batch, step
+    free_device_memory()
+    return rec
+
+
+def _reduced_runs(dev) -> dict:
+    """(c) the reduced configs: TRAIN_CHECK_STEPS steps on the card
+    against the same steps on the CPU, from the same parameters; then a
+    DLRM run killed after TRAIN_KILL_AT steps, resumed from its
+    checkpoint, against an uninterrupted run."""
+    import copy
+    import dataclasses as dc
+    import shutil
+    from repro_torch.configs import dlrm_mlperf, starcoder2_7b
+    from repro_torch.configs.base import dlrm_train_step, lm_train_step
+    from repro_torch.data.synthetic import dlrm_batch, lm_batch
+    from repro_torch.models.dlrm import init_dlrm
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import TrainLoopConfig, latest_step, train_loop
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    dl_cfg = dlrm_mlperf.REDUCED
+    lm_cfg = starcoder2_7b.REDUCED
+    cases = [
+        ("dlrm-reduced f32", lambda: init_dlrm(dl_cfg, gen, cpu),
+         lambda d: dlrm_train_step(dl_cfg, device=d),
+         lambda s: dlrm_batch(s, 256, dl_cfg.vocab_sizes)),
+        ("starcoder2-reduced bf16", lambda: init_lm(lm_cfg, gen, cpu),
+         lambda d: lm_train_step(lm_cfg, 4, 64, microbatches=2, device=d),
+         lambda s: lm_batch(s, 4, 64, lm_cfg.vocab)),
+        ("starcoder2-reduced f32", lambda: init_lm(
+            dc.replace(lm_cfg, param_dtype="float32"), gen, cpu),
+         lambda d: lm_train_step(dc.replace(lm_cfg, param_dtype="float32"),
+                                 4, 64, microbatches=2, device=d),
+         lambda s: lm_batch(s, 4, 64, lm_cfg.vocab)),
+    ]
+    out = {}
+    for what, init, make_step, arrays in cases:
+        first = init()
+        dtype = next(first.parameters()).dtype
+        runs = []
+        for d in (dev, cpu):
+            params = copy.deepcopy(first).to(d)
+            _, _, hist = train_loop(
+                make_step(d), params,
+                lambda s, d=d: {k: torch.from_numpy(v).to(d)
+                                for k, v in arrays(s).items()},
+                TrainLoopConfig(total_steps=TRAIN_CHECK_STEPS))
+            runs.append((hist, params))
+        (card_hist, card), (cpu_hist, on_cpu) = runs
+        out[what] = _same_training(f"{what} card vs CPU", card_hist,
+                                   cpu_hist, card, on_cpu, dtype, first)
+
+    # kill -> resume through checkpoint_dir, on the card
+    ckpt = ROOT / "build" / "train_checkpoints"
+    what, init, make_step, arrays = cases[0]
+    first = init()
+
+    def batches(s):
+        return {k: torch.from_numpy(v).to(dev) for k, v in arrays(s).items()}
+
+    class Killed(BaseException):
+        pass
+
+    step = make_step(dev)
+
+    def dying(p, o, b):
+        if int(o["step"]) == TRAIN_KILL_AT:
+            raise Killed
+        return step(p, o, b)
+
+    whole = copy.deepcopy(first).to(dev)
+    _, _, whole_hist = train_loop(step, whole, batches, TrainLoopConfig(
+        total_steps=TRAIN_RESUME_STEPS))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    loop = TrainLoopConfig(total_steps=TRAIN_RESUME_STEPS,
+                           checkpoint_every=TRAIN_KILL_AT // 2,
+                           checkpoint_dir=str(ckpt))
+    try:
+        train_loop(dying, copy.deepcopy(first).to(dev), batches, loop)
+        raise AssertionError("train kill: the run was not killed")
+    except Killed:
+        pass
+    saved = latest_step(ckpt)
+    t0 = time.perf_counter()
+    resumed = copy.deepcopy(first).to(dev)
+    _, _, tail = train_loop(step, resumed, batches, loop)
+    resume_s = time.perf_counter() - t0
+    if saved != TRAIN_KILL_AT - 1 or tail[0]["step"] != saved + 1:
+        raise AssertionError(f"train kill: checkpoint at {saved}, resumed "
+                             f"at {tail[0]['step']}")
+    out["kill_resume"] = _same_training(
+        f"{what} killed after step {TRAIN_KILL_AT - 1}, resumed", tail,
+        whole_hist[saved + 1:], resumed, whole, torch.float32, first)
+    out["kill_resume"].update(checkpoint_step=saved, resume_seconds=resume_s)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def train_phase(dev) -> dict:
+    """Phase 8: training on the card.  Returns the record."""
+    record = dict(dlrm=_dlrm_train(dev), lm=_lm_train(dev),
+                  reduced=_reduced_runs(dev))
+    free_device_memory()
+    return record
 
 
 def free_device_memory() -> None:
@@ -2999,6 +3421,10 @@ def main() -> int:
     lm, launches["flash_attention"], cr_launches = lm_phase(dev)
     clock.lap("7 lm serving")
     free_device_memory()
+
+    # 8. training: DLRM's train_batch, starcoder2-7b, card against CPU
+    train = train_phase(dev)
+    clock.lap("8 training")
     for row in rows:
         row["launches"] = launches[row["kernel"]]
         if row["kernel"] == "flash_attention":
@@ -3043,8 +3469,9 @@ def main() -> int:
                                    harnesses=harnesses,
                                    harness_launches=harness_launches,
                                    dlrm=dlrm, attention=attn, lm=lm,
+                                   train=train,
                                    phase_seconds=clock.seconds), indent=1))
-    # 8. the kernel table, then the last line
+    # 9. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))
     log(last)
     return 0

@@ -1,7 +1,9 @@
 """dlrm-mlperf [arXiv:1906.00091]: MLPerf DLRM (Criteo 1TB): 13 dense,
 26 sparse, dim 128, bot 512-256-128, top 1024-1024-512-256-1, dot
 interaction.  Counterpart of ``repro.configs.dlrm_mlperf`` with the
-serving cells of ``repro.configs.base.make_dlrm_arch`` (``base.py:435-453``).
+cells of ``repro.configs.base.make_dlrm_arch`` (``base.py:440-453``):
+the serving cells and ``train_batch``, whose step is
+``configs.base.dlrm_train_step``.
 
 The full tables (187,770,880 padded rows x 128 x f32, 96.1 GB) exceed
 one 80 GB card; :func:`capped` caps every table's rows for a one-card
@@ -19,8 +21,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.dlrm import (DLRM, DLRMConfig, dlrm_forward,
                                      retrieval_score)
 
-__all__ = ["CFG", "REDUCED", "SERVE_CELLS", "RETRIEVAL_CANDIDATES",
-           "capped", "serving_batch", "serve_step", "retrieval_step"]
+__all__ = ["CFG", "REDUCED", "SERVE_CELLS", "TRAIN_CELLS",
+           "RETRIEVAL_CANDIDATES", "capped", "serving_batch",
+           "training_batch", "serve_step", "retrieval_step"]
 
 CFG = DLRMConfig()
 
@@ -31,6 +34,8 @@ REDUCED = DLRMConfig(vocab_sizes=(1000, 200, 50, 300, 77, 10),
 #: Requests per serving cell: serve_p99 and serve_bulk are forward
 #: passes, retrieval_cand scores one query against the candidates.
 SERVE_CELLS = {"serve_p99": 512, "serve_bulk": 262_144, "retrieval_cand": 1}
+#: Samples per train step (``base.py:442``).
+TRAIN_CELLS = {"train_batch": 65_536}
 #: 1,000,000 candidates padded to a multiple of 512 (``base.py:412``).
 RETRIEVAL_CANDIDATES = -(-1_000_000 // 512) * 512
 
@@ -60,6 +65,16 @@ def serving_batch(cfg: DLRMConfig, cell: str, step: int, *, seed: int = 0,
                                   generator=gen, device=device)
         del out["label"]
     return out
+
+
+def training_batch(cfg: DLRMConfig, step: int, *, batch: int,
+                   seed: int = 0, device=None) -> dict:
+    """The ``dlrm_batch`` of (seed, step) on ``device``, of ``batch``
+    samples (``TRAIN_CELLS["train_batch"]`` in the train_batch cell)."""
+    device = resolve_device(device)
+    arrays = dlrm_batch(step, batch, cfg.vocab_sizes, cfg.multi_hot,
+                        seed=seed)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
 def serve_step(cfg: DLRMConfig, params: DLRM, batch, *, impl="kernel",

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from functools import lru_cache
-from typing import Any
+from typing import Any, Callable
 
 __all__ = ["ARCH_NAMES", "Arch", "get_arch"]
 
@@ -37,6 +37,9 @@ class Arch:
     family: str       # lm | moe | gnn | recsys, as the reference's
     cfg: Any
     reduced_cfg: Any
+    #: (cfg, generator, device=None) -> parameters: ``init_lm`` or
+    #: ``init_dlrm``
+    init_params: Callable[..., Any]
 
 
 @lru_cache(maxsize=None)
@@ -49,4 +52,8 @@ def get_arch(name: str) -> Arch:
             f"{name}: the {family} family is not ported to repro_torch yet "
             f"(ROADMAP.md, queue 1)")
     mod = importlib.import_module(module)
-    return Arch(name, family, mod.CFG, mod.REDUCED)
+    if family == "recsys":
+        from repro_torch.models.dlrm import init_dlrm as init
+    else:
+        from repro_torch.models.transformer import init_lm as init
+    return Arch(name, family, mod.CFG, mod.REDUCED, init)

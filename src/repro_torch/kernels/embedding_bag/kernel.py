@@ -14,9 +14,13 @@ kernel with one table.
 Their plain PyTorch versions are the oracles of ``ref.py`` (bit-equal at
 P = 1; to float rounding of the sum's order for P > 1).  The wrappers
 run the plain version only for tensors on the CPU; for a CUDA tensor
-they launch the kernel or raise.  Both count their launches in
-``embag.launches``.  The kernel is built at first use
-(:mod:`repro_torch.kernels._build`) and bound with ``ctypes``.
+they launch the kernel or raise.  The kernel has no backward, and
+``embag_tables`` writes into a buffer behind autograd's back: under grad
+mode, with a table that requires grad, both raise rather than leave the
+tables without a gradient; training pools through the plain versions,
+which keep autograd.  Both count their launches in ``embag.launches``.
+The kernel is built at first use (:mod:`repro_torch.kernels._build`)
+and bound with ``ctypes``.
 
 A call checks its tables once: what it learned (row counts, width,
 device, the ``ctypes`` arrays of pointers and rows) is kept under the
@@ -136,6 +140,14 @@ def _check_mode(mode: str, name: str) -> None:
         raise ValueError(f"{name}: mode must be one of {MODES}, got {mode!r}")
 
 
+def _check_no_grad(tables: Sequence[torch.Tensor], name: str) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        raise NotImplementedError(
+            f"{name} has no backward: call it under torch.no_grad()/"
+            "inference_mode, or train through the plain embedding bag "
+            "(impl='plain')")
+
+
 def embag_tables(tables: Sequence[torch.Tensor], indices: torch.Tensor, *,
                  mode: str = "sum", out: Optional[torch.Tensor] = None,
                  launch: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -153,6 +165,7 @@ def embag_tables(tables: Sequence[torch.Tensor], indices: torch.Tensor, *,
     kernel's entry point choose from B, F and P.
     """
     _check_mode(mode, "embag_tables")
+    _check_no_grad(tables, "embag_tables")
     tabs = _tables(tables, "embag_tables")
     if indices.dtype != torch.int32 or indices.dim() != 3:
         raise TypeError("embag_tables: indices must be a 3-D int32 tensor "
@@ -203,6 +216,7 @@ def embag(table: torch.Tensor, indices: torch.Tensor, *,
     ``[B, F, P]`` batch) as long as its last dimension is contiguous.
     """
     _check_mode(mode, "embag")
+    _check_no_grad((table,), "embag")
     if table.dtype != torch.float32 or table.dim() != 2:
         raise TypeError("embag: table must be a 2-D float32 tensor, got "
                         f"{table.dtype} {tuple(table.shape)}")

@@ -33,9 +33,13 @@ multiple of its tile, the CUDA kernel masks the ragged edge.
 Beside it is its plain PyTorch version, :func:`flash_attention_plain`,
 which computes the same function in one pass.  The wrapper runs the
 plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.  It counts its launches in
-``flash_attention.launches``.  :func:`kernel_info` names the kernel that
-a type and head size launch, with its registers and shared memory.
+launches the kernel or raises.  The kernel has no backward (nor has the
+TPU kernel): under grad mode, with an input that requires grad, the
+wrapper raises rather than return an output cut off from the graph;
+training runs ``models.layers.blocked_attention``, which keeps autograd.
+It counts its launches in ``flash_attention.launches``.
+:func:`kernel_info` names the kernel that a type and head size launch,
+with its registers and shared memory.
 """
 from __future__ import annotations
 
@@ -127,6 +131,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding window, or None."""
     _check(q, k, v)
     win = _check_window(causal, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention has no backward: call it under "
+            "torch.no_grad()/inference_mode, or train through "
+            "models.layers.blocked_attention (impl='plain')")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -14,6 +14,16 @@ The parameters are one :class:`DLRM` module: ``tables`` (a tuple of
 (:class:`~repro_torch.models.gnn.common.MLPStack`, ``layers[i].{w, b}``
 with ``w [d_in, d_out]`` as in the reference).
 :func:`dlrm_params_from_jax` carries the reference's parameters across.
+
+Training differentiates :func:`dlrm_loss`, which pools through the plain
+embedding bag by default, as the reference's loss does (``impl="xla"``):
+K3 has no backward and writes the interaction's input behind autograd's
+back, so it raises when a table requires grad.  The plain path writes
+the same buffer by slice assignment, which autograd follows, and each
+table's gradient is dense (``[rows, D]``, nonzero on the rows looked
+up), as ``jax.grad``'s is.  The parameters are built with
+``requires_grad=False``; a train step turns it on, and serving runs
+under ``torch.inference_mode`` (``configs.dlrm_mlperf.serve_step``).
 Every entry point takes ``device=None``, meaning the CUDA card, and
 raises without one unless ``device="cpu"`` is passed.
 """
@@ -201,9 +211,10 @@ def dlrm_forward(cfg: DLRMConfig, params: DLRM, batch: Mapping,
 
 
 def dlrm_loss(cfg: DLRMConfig, params: DLRM, batch: Mapping,
-              impl: str = "kernel", device=None) -> torch.Tensor:
+              impl: str = "plain", device=None) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``label``
-    (the numerically stable form, ``dlrm.py:115-120``)."""
+    (the numerically stable form, ``dlrm.py:115-120``), differentiable in
+    every parameter with the default ``impl="plain"``."""
     batch = _on(params, batch, device)
     z = dlrm_forward(cfg, params, batch, impl=impl, device=device).float()
     y = batch["label"].float()

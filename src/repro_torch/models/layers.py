@@ -15,7 +15,7 @@ card accumulates in f32 (cuBLAS), as the TPU's does.
 launches K4 (``kernels/flash_attention``, with the sliding window), and
 on the CPU it runs :func:`blocked_attention`, the port of
 ``blocked_attention_xla`` and K4's plain version on this path.
-``cross_entropy`` comes with training.
+:func:`cross_entropy` is the LM loss, in f32 with an ignore label.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ from repro_torch.kernels.flash_attention.kernel import (NEG_INF,
 
 __all__ = ["Dense", "Norm", "MLP", "init_dense", "dense", "init_norm",
            "rms_norm", "layer_norm", "rope", "blocked_attention",
-           "gqa_attention", "init_mlp", "mlp", "ACTS", "ATTN_IMPLS"]
+           "gqa_attention", "init_mlp", "mlp", "cross_entropy", "ACTS",
+           "ATTN_IMPLS"]
 
 #: The MLP activations of ``layers.py:mlp``.
 ACTS = ("swiglu", "geglu", "gelu", "relu", "silu")
@@ -248,3 +249,20 @@ def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return dense(p.down, up)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """logits [..., V], labels [...] -> the mean negative log-likelihood
+    over the labels that are not ``ignore_id``, in f32
+    (``layers.py:222-231``); 0 when every label is ignored."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    picked = torch.gather(logits, -1,
+                          labels.clamp_min(0)[..., None])[..., 0]
+    valid = labels != ignore_id
+    return torch.sum((lse - picked) * valid) / valid.sum().clamp_min(1)

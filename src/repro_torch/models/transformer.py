@@ -17,10 +17,19 @@ attention is plain (``decode_ref``), as the reference's is.  Unlike the
 reference's pure functions, :func:`decode_step` writes the new token's K
 and V into the cache it is given, in place, and returns that cache.
 
+Training is :func:`train_forward`: the causal stack with
+``blocked_attention`` (K4 has no backward; neither has the reference's
+Pallas kernel, whose model trains through ``blocked_attention_xla``),
+each block recomputed in the backward when ``cfg.remat``
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``), and
+:func:`chunked_ce`, the loss over sequence chunks of the tied logits.
+The parameters are built with ``requires_grad=False``; a train step
+turns it on, and :func:`prefill` and :func:`decode_step` run under
+``torch.inference_mode``, so serving never records a graph.
+
 Every entry point takes ``device=None``, meaning the CUDA card, and
-raises without one unless ``device="cpu"`` is passed.  ``train_forward``
-and ``chunked_ce`` come with training; the sharding fields of
-:class:`LMConfig` with the sharding pieces.
+raises without one unless ``device="cpu"`` is passed.  The sharding
+fields of :class:`LMConfig` come with the sharding pieces.
 """
 from __future__ import annotations
 
@@ -30,13 +39,15 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ref import decode_ref
 from repro_torch.models import layers as L
 
 __all__ = ["LMConfig", "LM", "Block", "Attention", "init_lm",
-           "lm_params_from_jax", "prefill", "decode_step"]
+           "lm_params_from_jax", "prefill", "decode_step", "train_forward",
+           "chunked_ce"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -44,8 +55,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's fields (``transformer.py:24-47``), so that configs
-    compare field by field.  ``remat`` is inert when serving; the
-    sharding fields must keep their defaults."""
+    compare field by field.  ``remat`` recomputes each block and each
+    loss chunk in the backward of :func:`train_forward` (it is inert
+    when serving); the sharding fields must keep their defaults."""
     name: str
     n_layers: int
     d_model: int
@@ -243,12 +255,70 @@ def _block(cfg: LMConfig, p: Block, x: torch.Tensor, positions, kv=None,
     return mid + L.mlp(p.mlp, _norm(cfg, p.ln2, mid), cfg.act), kv_out
 
 
+def _train_block(cfg: LMConfig, p: Block, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One layer of the training forward: ``blocked_attention``, never
+    K4, whose kernel has no backward."""
+    return _block(cfg, p, x, positions, impl="plain")[0]
+
+
+def _stack(cfg: LMConfig, params: LM, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Every layer in turn (``transformer.py:161-175``); with
+    ``cfg.remat`` each block keeps only its input for the backward and
+    is recomputed there (the reference's ``nothing_saveable`` policy)."""
+    for p in params.blocks:
+        if cfg.remat:
+            x = checkpoint(_train_block, cfg, p, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _train_block(cfg, p, x, positions)
+    return x
+
+
 def _logits(cfg: LMConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     """The final norm, then logits against the tied embedding in f32:
     both operands upcast, as ``preferred_element_type=float32`` sums the
     exact products of bf16 values in f32."""
     x = _norm(cfg, params.final_norm, x)
     return torch.einsum("bsd,vd->bsv", x.float(), params.embed.float())
+
+
+def _ce_chunk(cfg: LMConfig, params: LM, x: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """The summed negative log-likelihood of one chunk: the logits in the
+    parameters' type (an f32 product here would make the cotangent of x
+    f32 through the whole backward, ``transformer.py:195-198``), the
+    softmax and the CE in f32."""
+    h = _norm(cfg, params.final_norm, x)
+    logits32 = torch.einsum("bsd,vd->bsv", h, params.embed).float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    picked = torch.gather(logits32, -1,
+                          labels.clamp_min(0)[..., None])[..., 0]
+    return torch.sum((lse - picked) * (labels != -1))
+
+
+def chunked_ce(cfg: LMConfig, params: LM, x: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Sequence-chunked cross-entropy (``transformer.py:184-216``): x
+    [B,S,d], labels [B,S] (``-1`` ignored) -> the mean NLL in f32 over
+    chunks of ``min(cfg.ce_chunk, S)`` positions, so only one chunk's
+    logits [B,c,V] exist at a time.  As in the reference, the last ``S
+    mod c`` positions are left out when c does not divide S."""
+    b, s, _ = x.shape
+    c = min(cfg.ce_chunk, s)
+    n = s // c
+    labels = labels.long()
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        xi, li = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if cfg.remat:
+            nll = nll + checkpoint(_ce_chunk, cfg, params, xi, li,
+                                   use_reentrant=False)
+        else:
+            nll = nll + _ce_chunk(cfg, params, xi, li)
+    cnt = (labels[:, :n * c] != -1).sum()
+    return nll / cnt.clamp_min(1)
 
 
 def _on(params: LM, tokens, device) -> torch.Tensor:
@@ -264,6 +334,21 @@ def _on(params: LM, tokens, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+def train_forward(cfg: LMConfig, params: LM, batch, *,
+                  device=None) -> torch.Tensor:
+    """batch ``{"tokens", "labels"}`` [B,S] -> the mean next-token loss
+    in f32, differentiable in the parameters (``transformer.py:
+    219-225``).  Attention is ``blocked_attention`` on every device."""
+    tokens = _on(params, batch["tokens"], device)
+    labels = torch.as_tensor(batch["labels"]).to(tokens.device)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = params.embed[tokens]
+    x = _stack(cfg, params, x, positions)
+    return chunked_ce(cfg, params, x, labels)
+
+
+@torch.inference_mode()
 def prefill(cfg: LMConfig, params: LM, tokens, *, impl: str = "kernel",
             device=None) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                       torch.Tensor]]:
@@ -283,6 +368,7 @@ def prefill(cfg: LMConfig, params: LM, tokens, *, impl: str = "kernel",
     return _logits(cfg, params, x[:, -1:, :])[:, 0], (ks, vs)
 
 
+@torch.inference_mode()
 def decode_step(cfg: LMConfig, params: LM, token, cache, kv_len: int, *,
                 device=None):
     """token [B,1]; cache (k, v) [L,B,Hkv,Smax,dh]; kv_len the tokens

@@ -1382,3 +1382,154 @@ def test_lm_demo_serves_on_the_card(cuda_device, capsys):
     assert rec["token_ids"].shape == (2, 5)
     assert torch.isfinite(rec["last_logits"]).all()
     assert "GB" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# training (no kernel runs: K3 and K4 have no backward)
+# ---------------------------------------------------------------------------
+def _train_case(name, dtype):
+    import dataclasses
+    from repro_torch.configs import dlrm_mlperf, starcoder2_7b
+    from repro_torch.configs.base import dlrm_train_step, lm_train_step
+    from repro_torch.data.synthetic import dlrm_batch, lm_batch
+    from repro_torch.models.dlrm import init_dlrm
+    from repro_torch.models.transformer import init_lm
+    gen = torch.Generator().manual_seed(0)
+    if name == "dlrm":
+        cfg = dlrm_mlperf.REDUCED
+        return (init_dlrm(cfg, gen, "cpu"),
+                lambda d: dlrm_train_step(cfg, device=d),
+                lambda s: dlrm_batch(s, 128, cfg.vocab_sizes))
+    cfg = dataclasses.replace(starcoder2_7b.REDUCED, param_dtype=dtype)
+    return (init_lm(cfg, gen, "cpu"),
+            lambda d: lm_train_step(cfg, 4, 48, microbatches=2, device=d),
+            lambda s: lm_batch(s, 4, 48, cfg.vocab))
+
+
+def _train_run(params, make_step, arrays, device, steps=3):
+    from repro_torch.train import TrainLoopConfig, train_loop
+    return train_loop(make_step(device), params,
+                      lambda s: {k: torch.from_numpy(v).to(device)
+                                 for k, v in arrays(s).items()},
+                      TrainLoopConfig(total_steps=steps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("dlrm", "float32"),
+                                        ("starcoder2", "float32"),
+                                        ("starcoder2", "bfloat16")])
+def test_train_steps_on_the_card_equal_the_cpu(cuda_device, name, dtype):
+    """3 steps of the reduced DLRM and starcoder2-7b on the card against
+    the port's CPU steps from the same parameters, at ``chip_smoke.py``'s
+    ``TRAIN_TOL``: f32 losses and grad norms rtol 1e-5, parameters rtol
+    1e-5, atol 1e-4 (a third of one AdamW step at lr 3e-4: where a
+    gradient is near 0, a last-bit difference of the two devices' sums
+    moves its update by up to lr); bf16 losses atol 1e-3, grad norms
+    rtol 2e-3, parameters atol 4e-3; the parameters' movement from
+    their start within f32 1e-3, bf16 0.1 of its norm, and every leaf
+    the CPU moved moved on the card.  No K3 or K4 launch."""
+    import copy
+    from repro_torch.kernels.embedding_bag import embag
+    first, make_step, arrays = _train_case(name, dtype)
+    k3, k4 = embag.launches, flash_attention.launches
+    card = copy.deepcopy(first).to(cuda_device)
+    _, _, got = _train_run(card, make_step, arrays, cuda_device)
+    assert (embag.launches, flash_attention.launches) == (k3, k4)
+    on_cpu = copy.deepcopy(first)
+    _, _, want = _train_run(on_cpu, make_step, arrays, torch.device("cpu"))
+    f32 = dtype == "float32"
+    for key, tol in (("loss", dict(rtol=1e-5, atol=0.0) if f32
+                      else dict(rtol=0.0, atol=1e-3)),
+                     ("grad_norm", dict(rtol=1e-5 if f32 else 2e-3,
+                                        atol=0.0))):
+        np.testing.assert_allclose([r[key] for r in got],
+                                   [r[key] for r in want], **tol)
+    for (n, a), (_, b) in zip(card.named_parameters(),
+                              on_cpu.named_parameters()):
+        torch.testing.assert_close(
+            a.detach().float().cpu(), b.detach().float(), msg=n,
+            **(dict(rtol=1e-5, atol=1e-4) if f32 else dict(rtol=0.0,
+                                                           atol=4e-3)))
+    diff2 = want2 = 0.0
+    for (n, a), (_, b), (_, s0) in zip(card.named_parameters(),
+                                       on_cpu.named_parameters(),
+                                       first.named_parameters()):
+        s0 = s0.detach().double()
+        da = a.detach().double().cpu() - s0
+        db = b.detach().double() - s0
+        assert bool(da.any()) or not bool(db.any()), f"{n} did not move"
+        diff2 += float(((da - db) ** 2).sum())
+        want2 += float((db ** 2).sum())
+    assert want2 > 0 and (diff2 / want2) ** 0.5 <= (1e-3 if f32 else 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dlrm", "starcoder2"])
+def test_train_gradients_reach_every_parameter_on_the_card(cuda_device,
+                                                            name):
+    from repro_torch.configs.base import trainable, value_and_grad
+    from repro_torch.models.dlrm import dlrm_loss
+    from repro_torch.models.transformer import train_forward
+    from repro_torch.configs import dlrm_mlperf, starcoder2_7b
+    params, _, arrays = _train_case(name, "bfloat16")
+    params = params.to(cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in arrays(0).items()}
+    if name == "dlrm":
+        def loss():
+            return dlrm_loss(dlrm_mlperf.REDUCED, params, batch,
+                             device=cuda_device)
+    else:
+        def loss():
+            return train_forward(starcoder2_7b.REDUCED, params, batch,
+                                 device=cuda_device)
+    _, grads = value_and_grad(loss, trainable(params))
+    for n, g in grads.items():
+        assert torch.isfinite(g.float()).all(), n
+        assert bool((g != 0).any()), f"{n}: no gradient"
+
+
+@pytest.mark.cuda
+def test_kernels_raise_under_grad_mode_on_the_card(cuda_device):
+    from repro_torch.kernels.embedding_bag import embag
+    t = torch.randn(100, 16, device=cuda_device, requires_grad=True)
+    idx = torch.zeros((4, 1), dtype=torch.int32, device=cuda_device)
+    launches = embag.launches
+    with pytest.raises(NotImplementedError):
+        embag(t, idx)
+    with pytest.raises(NotImplementedError):
+        embag_tables([t], idx[:, None])
+    q = torch.randn(1, 2, 16, 32, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q.detach(), q.detach())
+    assert embag.launches == launches
+    with torch.inference_mode():
+        embag(t, idx)
+    assert embag.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_train_launcher_on_the_card(cuda_device, capsys, tmp_path):
+    from repro_torch.launch import train
+    for arch in ("dlrm-mlperf", "starcoder2-7b"):
+        hist = train.main(["--arch", arch, "--steps", "3", "--ckpt",
+                           str(tmp_path / arch)])
+        assert len(hist) == 3
+        assert all(np.isfinite(r["loss"]) for r in hist)
+    assert "done: loss" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+    tree = {"h": torch.randn(33, 7, device=cuda_device).bfloat16(),
+            "f": torch.randn(5, device=cuda_device),
+            "i": torch.arange(4, device=cuda_device, dtype=torch.int32)}
+    save_checkpoint(tmp_path, 3, tree)
+    like = {k: torch.zeros_like(v) for k, v in tree.items()}
+    restore_checkpoint(tmp_path, like)
+    for k in tree:
+        assert like[k].device == tree[k].device
+        assert torch.equal(like[k].view(torch.int16) if k == "h" else
+                           like[k], tree[k].view(torch.int16) if k == "h"
+                           else tree[k])

@@ -226,3 +226,85 @@ def test_tables_are_registered_parameters_in_feature_order(params):
     assert all(t is getattr(port, n) for t, n in zip(port.tables, names))
     assert [t.shape[0] for t in port.tables] == \
         list(REDUCED.padded_vocab_sizes)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def _trainable_pair():
+    """Fresh parameters (the module fixture's stay frozen for serving)."""
+    from repro_torch.configs.base import trainable
+    j_params = j_dlrm.init_dlrm(jax.random.key(0), REDUCED)
+    port = dlrm_params_from_jax(jax.tree.map(np.asarray, j_params),
+                                device="cpu")
+    return j_params, port, trainable(port)
+
+
+def test_loss_gradients_match_jax_grad():
+    """Every parameter's gradient, the dense table gradients included,
+    against ``jax.grad`` of the reference's loss (its default XLA
+    gather): rtol=1e-5, atol=1e-8 (largest difference seen 1.3e-8 on
+    gradients of up to 0.03)."""
+    from repro_torch.configs.base import value_and_grad
+    j_params, port, leaves = _trainable_pair()
+    batch = dlrm_batch(3, 64, REDUCED.vocab_sizes)
+    jl, jg = jax.value_and_grad(
+        lambda p: j_dlrm.dlrm_loss(REDUCED, p, _jax(batch)))(j_params)
+    loss, grads = value_and_grad(
+        lambda: dlrm_loss(REDUCED, port, batch, device="cpu"), leaves)
+    assert float(loss) == pytest.approx(float(jl), rel=1e-6)
+    jg = jax.tree.map(np.asarray, jg)
+    for name, g in grads.items():
+        if name.startswith("table_"):
+            want = jg["tables"][int(name[6:])]
+        else:
+            tower, _, i, k = name.split(".")
+            want = jg[tower]["layers"][int(i)][k]
+        assert g.shape == tuple(want.shape)
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-5, atol=1e-8,
+                                   err_msg=name)
+
+
+def test_table_gradient_is_nonzero_exactly_on_the_rows_looked_up():
+    from repro_torch.configs.base import value_and_grad
+    _, port, leaves = _trainable_pair()
+    batch = dlrm_batch(5, 48, REDUCED.vocab_sizes)
+    _, grads = value_and_grad(
+        lambda: dlrm_loss(REDUCED, port, batch, device="cpu"), leaves)
+    for f in range(REDUCED.n_sparse):
+        rows = np.zeros(REDUCED.vocab_sizes[f], bool)
+        rows[batch["sparse"][:, f].ravel()] = True
+        nonzero = (grads[f"table_{f}"] != 0).any(dim=1).numpy()
+        np.testing.assert_array_equal(nonzero, rows, err_msg=f"table {f}")
+
+
+def test_k3_wrappers_raise_when_a_table_requires_grad():
+    """K3 writes the interaction's input behind autograd's back: with a
+    table that requires grad under grad mode the wrappers raise (and
+    the forward with ``impl="kernel"`` with them) instead of leaving the
+    tables without a gradient.  Under inference mode, as serving runs,
+    they run; the plain path keeps autograd."""
+    from repro_torch.kernels.embedding_bag import embag_tables
+    _, port, _ = _trainable_pair()
+    batch = dlrm_batch(0, 8, REDUCED.vocab_sizes)
+    idx = torch.from_numpy(batch["sparse"])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        embag_tables(port.tables, idx)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        embag(port.tables[0], idx[:, 0])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        dlrm_forward(REDUCED, port, batch, impl="kernel", device="cpu")
+    with torch.inference_mode():
+        served = serve_step(REDUCED, port, batch, device="cpu")
+    plain = dlrm_forward(REDUCED, port, batch, impl="plain", device="cpu")
+    assert plain.requires_grad
+    np.testing.assert_array_equal(plain.detach().numpy(), served.numpy())
+
+
+def test_training_batch_is_the_train_cell():
+    from repro_torch.configs.dlrm_mlperf import TRAIN_CELLS, training_batch
+    assert TRAIN_CELLS == {"train_batch": 65_536}
+    b = training_batch(REDUCED, 3, batch=32, device="cpu")
+    want = dlrm_batch(3, 32, REDUCED.vocab_sizes)
+    for k in want:
+        np.testing.assert_array_equal(b[k].numpy(), want[k])

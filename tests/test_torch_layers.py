@@ -208,3 +208,71 @@ def test_gqa_attention_rejects_an_unknown_impl():
     q, k, v = map(_t, _attn_inputs(1, 2, 2, 8, 8, 0))
     with pytest.raises(ValueError, match="impl"):
         L.gqa_attention(q, k, v, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# training: the loss, and K4 refusing a graph it would cut
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_entropy_matches_the_reference(dtype):
+    """Labels of -1 are ignored; bf16 logits go to f32 first in both, so
+    the f32 tolerance holds for both types."""
+    rng = _rng(21)
+    logits = rng.standard_normal((3, 11, 50)).astype(np.float32) * 4
+    labels = rng.integers(0, 50, (3, 11)).astype(np.int32)
+    labels[0, :4] = -1
+    labels[2, -1] = -1
+    jl = jnp.asarray(logits).astype(getattr(jnp, dtype))
+    want = float(JL.cross_entropy(jl, jnp.asarray(labels)))
+    got = L.cross_entropy(_t(logits).to(getattr(torch, dtype)),
+                          _t(labels))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), want, **TOL)
+
+
+def test_cross_entropy_of_only_ignored_labels_is_zero():
+    labels = torch.full((2, 3), -1)
+    assert float(L.cross_entropy(torch.randn(2, 3, 7), labels)) == 0.0
+
+
+def test_cross_entropy_gradient_matches_the_reference():
+    import jax
+    rng = _rng(22)
+    logits = rng.standard_normal((2, 9, 30)).astype(np.float32)
+    labels = rng.integers(-1, 30, (2, 9)).astype(np.int32)
+    want = jax.grad(lambda x: JL.cross_entropy(x, jnp.asarray(labels)))(
+        jnp.asarray(logits))
+    x = _t(logits).requires_grad_(True)
+    L.cross_entropy(x, _t(labels)).backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
+
+
+def test_blocked_attention_keeps_autograd():
+    """The plain version, which training runs, has a backward: its
+    gradients match those of the one-pass plain attention."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    q, k, v = (_t(a).requires_grad_(True)
+               for a in _attn_inputs(1, 6, 2, 40, 40, 9))
+    g = torch.randn(1, 6, 40, 16, generator=torch.Generator().manual_seed(1))
+    want = torch.autograd.grad(
+        (flash_attention_plain(q, k, v, window=16) * g).sum(), (q, k, v))
+    got = torch.autograd.grad(
+        (L.blocked_attention(q, k, v, window=16, q_chunk=16, k_chunk=16)
+         * g).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+def test_k4_wrapper_raises_under_grad_mode():
+    """K4 has no backward: given an input that requires grad under grad
+    mode, the wrapper raises instead of returning an output cut off from
+    the graph; under no_grad it runs (here its plain version)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    q, k, v = map(_t, _attn_inputs(1, 2, 2, 8, 8, 0))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).shape == q.shape
+    with torch.inference_mode():
+        assert flash_attention(q.detach(), k, v).shape == q.shape

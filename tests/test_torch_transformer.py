@@ -226,3 +226,119 @@ def test_entry_points_without_device_need_cuda():
             call()
     with pytest.raises(ValueError, match="parameters are on"):
         T.prefill(cfg, params, toks, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# training: chunked_ce and train_forward's loss and gradients
+# ---------------------------------------------------------------------------
+#: Gradient tolerances, per leaf, as a share of that leaf's largest
+#: reference gradient.  f32 1e-5 (largest seen 1.9e-6); bf16 6e-2 (largest
+#: seen 2.9e-2, on starcoder2's K bias, whose gradient is rounding noise:
+#: a bias on K shifts a whole row of scores and the softmax cancels it).
+#: Loss: f32 rtol=1e-6; bf16 atol=1e-3 (seen 2.5e-4).
+GRAD_TOLS = {"float32": (dict(rtol=1e-6, atol=0.0), 1e-5),
+             "bfloat16": (dict(rtol=0.0, atol=1e-3), 6e-2)}
+TRAIN_SEQ, CE_CHUNK = 41, 16     # 2 chunks of 16, 9 positions left out
+
+
+def _train_batch(vocab):
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, vocab, (2, TRAIN_SEQ)).astype(np.int32)
+    labels = rng.integers(0, vocab, (2, TRAIN_SEQ)).astype(np.int32)
+    labels[0, :5] = -1
+    return {"tokens": toks, "labels": labels}
+
+
+def _jax_leaf(tree, name):
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        node = tree["blocks"]
+        for k in parts[2:]:
+            node = node[k]
+        return np.asarray(node[int(parts[1])], np.float32)
+    for k in parts:
+        tree = tree[k]
+    return np.asarray(tree, np.float32)
+
+
+def _train_pair(name, dtype, **over):
+    jcfg, cfg = _configs(name, dtype)
+    jcfg = dataclasses.replace(jcfg, ce_chunk=CE_CHUNK, **over)
+    cfg = dataclasses.replace(cfg, ce_chunk=CE_CHUNK, **over)
+    jp = JT.init_lm(jax.random.key(0), jcfg)
+    port = T.lm_params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                device="cpu")
+    return jcfg, cfg, jp, port
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_train_forward_loss_and_gradients_match_the_reference(name, dtype):
+    from repro_torch.configs.base import trainable, value_and_grad
+    jcfg, cfg, jp, port = _train_pair(name, dtype)
+    batch = _train_batch(cfg.vocab)
+    jl, jg = jax.value_and_grad(lambda p: JT.train_forward(
+        jcfg, p, jax.tree.map(jnp.asarray, batch)))(jp)
+    leaves = trainable(port)
+    loss, grads = value_and_grad(
+        lambda: T.train_forward(cfg, port, batch, device="cpu"), leaves)
+    loss_tol, grad_share = GRAD_TOLS[dtype]
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(float(loss), float(jl), **loss_tol)
+    jg = jax.tree.map(np.asarray, jg)
+    for n, g in grads.items():
+        assert g.dtype == cfg.dtype, n
+        want = _jax_leaf(jg, n)
+        np.testing.assert_allclose(g.float().numpy(), want, rtol=0,
+                                   atol=grad_share * np.abs(want).max(),
+                                   err_msg=n)
+
+
+def test_remat_changes_no_number():
+    """``remat`` recomputes each block and loss chunk in the backward;
+    loss and gradients stay bit for bit those without it."""
+    from repro_torch.configs.base import trainable, value_and_grad
+    out = []
+    for remat in (True, False):
+        _, cfg, _, port = _train_pair("command-r-35b", "float32",
+                                      remat=remat)
+        out.append(value_and_grad(
+            lambda: T.train_forward(cfg, port, _train_batch(cfg.vocab),
+                                    device="cpu"), trainable(port)))
+    (l1, g1), (l2, g2) = out
+    assert torch.equal(l1, l2)
+    for n in g1:
+        assert torch.equal(g1[n], g2[n]), n
+
+
+@pytest.mark.parametrize("seq", [32, 41, 8])
+def test_chunked_ce_matches_the_reference(seq):
+    """Logits in the parameters' type, CE in f32, ``-1`` labels ignored,
+    and, when the chunk does not divide S, the reference's cut of the
+    last S mod c positions (S = 8 < the chunk: one chunk of 8)."""
+    jcfg, cfg, jp, port = _train_pair("starcoder2-7b", "float32")
+    rng = np.random.default_rng(seq)
+    x = rng.standard_normal((2, seq, cfg.d_model)).astype(np.float32)
+    labels = rng.integers(-1, cfg.vocab, (2, seq)).astype(np.int32)
+    want = float(JT.chunked_ce(jcfg, jp, jnp.asarray(x), jnp.asarray(labels)))
+    got = T.chunked_ce(cfg, port, torch.from_numpy(x),
+                       torch.from_numpy(labels))
+    np.testing.assert_allclose(float(got), want, rtol=1e-6)
+    if seq % CE_CHUNK:
+        # the positions past the last whole chunk do not count
+        labels2 = labels.copy()
+        labels2[:, (seq // min(CE_CHUNK, seq)) * min(CE_CHUNK, seq):] = 0
+        assert float(T.chunked_ce(cfg, port, torch.from_numpy(x),
+                                  torch.from_numpy(labels2))) == float(got)
+
+
+def test_serving_records_no_graph_after_training_turns_grad_on():
+    """Once a train step has turned ``requires_grad`` on, prefill and
+    decode still run under inference mode (on the card, K4 would raise
+    under grad mode)."""
+    from repro_torch.configs.base import trainable
+    _, cfg, _, port = _train_pair("starcoder2-7b", "float32")
+    trainable(port)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, 12))
+    logits, (k, v) = T.prefill(cfg, port, toks, device="cpu")
+    assert not logits.requires_grad and logits.is_inference()
