@@ -277,7 +277,50 @@ script exits non-zero:
    parameters (``TRAIN_TOL``), and a DLRM run killed after 4 steps,
    resumed through ``checkpoint_dir`` under ``build/``, against an
    uninterrupted one.
-9. print the kernel table as one JSON line, then the last line
+9. the MoE LMs (``repro_torch.models.moe``).  (a) qwen3-moe-235b-a22b
+   and grok-1-314b at full width, their depth cut to 8 of 94 and 4 of
+   64 layers (about 41 GB of bf16 weights each, seed 0), with the K4
+   count set to 0, served by ``lm_demo.serve`` at B=4, a 4,096-token
+   prompt and 16 tokens after its untimed prefill and decode step:
+   require one K4 launch per layer in the timed prefill (two per layer
+   in the call; Hq/Hkv 64/4 and 48/8, no window), finite logits; print
+   prefill ms, decode ms per token, the share of (token, expert)
+   assignments the timed prefill dropped at capacity and peak memory.
+   (b) The served prefill's last-token logits against a prefill of the
+   same prompt with ``blocked_attention``: within ``MOE_LOGIT_TOL``, the
+   same argmax, and the share of (token, layer) whose experts differ
+   between the two.  (c) One profiled prefill split by its
+   ``record_function`` ranges: attention, routing, dispatch, the
+   grouped GEMM, combine.  (d) qwen3-moe at full width and 1 layer,
+   4 x 4,096 tokens, remat, 1 untimed + 3 timed steps of
+   ``lm_train_step(forward=moe_train_forward)`` on one repeated batch:
+   the loss must fall; ms/step, tokens/s, MFU of 989 TFLOP/s from the
+   active parameters (6 N_active tokens plus the attention), peak
+   memory beside the reckoned bytes, one profiled step (no K4).  (e)
+   Both reduced MoEs in f32 and bf16, card against CPU from the same
+   parameters: prefill (routing and ``keep`` equal in f32), 4 decode
+   steps (f32 1e-4 with the argmax, bf16 ``LM_LOGIT_TOL``) and 3 train
+   steps at ``TRAIN_TOL`` (bf16: ``MOE_BF16_TRAIN_TOL``).  K4 is also timed in phase 3 at both
+   prefill shapes (B=4, S=4,096, bf16 causal) against
+   ``blocked_attention`` and SDPA.
+10. the GNNs (``repro_torch.models.gnn``), all training through
+   ``aggregate``: PNA and MeshGraphNet at full config on
+   ``full_graph_sm`` (a ``powerlaw_graph`` of 3,072 nodes asked for
+   half the shape's 10,752 edges: 12,928 once symmetrized, d_feat 1,433)
+   and
+   ``minibatch_lg`` (the GraphSAGE tree of 1,024 seeds sampled 10 then
+   15 deep from a ``powerlaw_graph`` of 164,864 nodes: 164,864 nodes,
+   163,840 edges, d_feat 602), SchNet and EquiformerV2 on 128 molecules
+   (3,840 atoms, 16,384 edges); 1 untimed + 3 timed steps on one repeated
+   batch, AdamW at lr 1e-3: ms/step, peak memory, whether the loss fell,
+   one profiled step's idle share.  ``ogb_products`` is reckoned, not
+   run.  PNA at ``minibatch_lg`` under each of the six coherence x
+   consistency configs from the same parameters: ms/step and the
+   largest loss difference from SG0.  EquiformerV2's rotation
+   invariance on the card (the reference's test, 5e-3), and the four
+   reduced GNNs' 3 steps card against CPU at ``TRAIN_TOL`` (EquiformerV2,
+   whose edge tensors are bf16, at its bf16 row).
+11. print the kernel table as one JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The full record also goes to ``--out``.
@@ -433,6 +476,52 @@ TRAIN_TOL = {torch.float32: dict(loss=dict(rtol=1e-5, atol=0.0),
                                   grad_norm=dict(rtol=2e-3, atol=0.0),
                                   params=dict(rtol=0.0, atol=4e-3),
                                   movement=0.1)}
+#: Phase 9, the MoE LMs, each at full width with its depth cut to
+#: MOE_LAYERS (about 41 GB of bf16 weights each: qwen3-moe 4.98 GB a layer
+#: and a 1.24 GB embedding, grok-1 9.84 GB a layer and 1.61 GB), weights
+#: from seed MOE_SEED, served through lm_demo at MOE_SERVE; the served
+#: prefill against blocked_attention within MOE_LOGIT_TOL (the dense LMs'
+#: bound), the same argmax
+MOE_SEED = 0
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 8, "grok-1-314b": 4}
+MOE_SERVE = dict(batch=4, prompt_len=4096, gen=16)
+MOE_LOGIT_TOL = LM_LOGIT_TOL
+#: K4 at the MoE prefill shapes (B, S of MOE_SERVE): (arch, Hq, Hkv), D
+MOE_ATTN = [("qwen3-moe-235b-a22b", 64, 4), ("grok-1-314b", 48, 8)]
+MOE_D = 128
+#: qwen3-moe trained at full width and MOE_TRAIN_LAYERS of its 94 layers
+#: (bf16 params and grads, f32 moments and accumulators: ~56 GB before
+#: activations at one layer; grok-1 would need ~82 GB at one layer and is
+#: not trained), B x S tokens as MOE_TRAIN_MICRO microbatches (phase 8's
+#: split), remat on, 1 untimed + MOE_TRAIN_TIMED steps on one repeated
+#: batch
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 4, 4096, 4
+MOE_TRAIN_TIMED = 3
+#: Phase 10, the GNNs: each model at its full config on the GNN_SHAPES
+#: that fit one card (ogb_products is reckoned, not run), 1 untimed +
+#: GNN_TIMED steps on one repeated batch, AdamW at lr 1e-3; PNA at
+#: minibatch_lg under each of aggregate's six configs; molecules of
+#: MOLECULE atoms and directed edges each
+GNN_SEED = 0
+GNN_MODELS = ("pna", "meshgraphnet", "schnet", "equiformer-v2")
+GNN_CELLS = [("pna", "full_graph_sm"), ("pna", "minibatch_lg"),
+             ("meshgraphnet", "full_graph_sm"),
+             ("meshgraphnet", "minibatch_lg"), ("schnet", "molecule"),
+             ("equiformer-v2", "molecule")]
+GNN_CONFIG_CELL = ("pna", "minibatch_lg")
+#: minibatch_lg's sampled tree: seeds and per-hop fan-outs (the shape's
+#: 1,024 x (1 + 10 + 150) nodes)
+MINIBATCH_SEEDS, MINIBATCH_FANOUTS = 1024, (10, 15)
+GNN_TIMED = 3
+MOLECULE = dict(atoms=30, edges=128)
+#: Phase 9 (e), the reduced MoEs' bf16 train steps card against CPU:
+#: TRAIN_TOL's bf16 row but the grad norm at rtol 1e-2 (seen 3.1e-3 on
+#: grok-1's, NVIDIA H100 80GB HBM3, 700.00 W: the combine's bf16
+#: scatter-add rounds in the card's atomic order, and the router's top-k
+#: of bf16 activations can pick another expert for a near tie)
+MOE_BF16_TRAIN_TOL = dict(TRAIN_TOL[torch.bfloat16],
+                          grad_norm=dict(rtol=1e-2, atol=0.0))
 #: DLRM serving: timed requests per cell, after one untimed warm-up each
 DLRM_REQUESTS = {"serve_p99": 8, "serve_bulk": 4, "retrieval_cand": 4}
 #: the table-batched K3's launch variants: (items per warp, threads per
@@ -1257,12 +1346,13 @@ def _movement(got_params, want_params, start) -> dict:
 
 
 def _same_training(what, got_hist, want_hist, got_params, want_params,
-                   dtype, start) -> dict:
+                   dtype, start, tol=None) -> dict:
     """Two runs of the same steps from the parameters ``start``: losses,
     grad norms, parameters and the parameters' movement from ``start``
-    within TRAIN_TOL of ``dtype``, and every leaf that ``want`` moved
-    moved in ``got`` too; figures logged before any check."""
-    tol = TRAIN_TOL[dtype]
+    within ``tol`` (default TRAIN_TOL of ``dtype``), and every leaf that
+    ``want`` moved moved in ``got`` too; figures logged before any
+    check."""
+    tol = tol or TRAIN_TOL[dtype]
     errs = dict(loss=max(abs(a["loss"] - b["loss"])
                          for a, b in zip(got_hist, want_hist)),
                 grad_norm=max(abs(a["grad_norm"] - b["grad_norm"])
@@ -1545,6 +1635,591 @@ def train_phase(dev) -> dict:
     """Phase 8: training on the card.  Returns the record."""
     record = dict(dlrm=_dlrm_train(dev), lm=_lm_train(dev),
                   reduced=_reduced_runs(dev))
+    free_device_memory()
+    return record
+
+
+# ---------------------------------------------------------------------------
+# 9. the MoE LMs; 10. the GNNs
+# ---------------------------------------------------------------------------
+def moe_attention_rows(dev, flush) -> list:
+    """K4 at the MoE prefill shapes (B, S of MOE_SERVE; each arch's head
+    groups), against ``blocked_attention`` (the plain version on the LM
+    path) and SDPA with ``enable_gqa``."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import blocked_attention
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, s = MOE_SERVE["batch"], MOE_SERVE["prompt_len"]
+    rows = []
+    for arch, hq, hkv in MOE_ATTN:
+        q = torch.randn((b, hq, s, MOE_D), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k, v = [torch.randn((b, hkv, s, MOE_D), generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2)]
+        kernel = lambda: flash_attention(q, k, v, causal=True)
+        plain = lambda: blocked_attention(q, k, v, causal=True)
+        mask = causal_lower_right(s, s)
+        library = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+        got, want, lib_out = kernel(), plain(), library()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {arch}: non-finite")
+        tol = ATTN_TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        torch.testing.assert_close(lib_out.float(), want.float(), **tol)
+        err = float((got.float() - want.float()).abs().max())
+        moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        pairs = b * _visible_pairs(s, s, True)
+        rows.append(_row(
+            f"flash_attention[bf16,causal,B={b},Hq={hq},Hkv={hkv},Sq={s},"
+            f"Sk={s},D={MOE_D}] ({arch} prefill)", "flash_attention", err,
+            time_ms(kernel, flush), time_ms(plain, flush),
+            time_ms(library, flush), moved, 4 * hq * pairs * MOE_D,
+            BF16_OPS_PER_S, arch=arch, sq=s, sk=s, causal=True,
+            window=None, visible_pairs=pairs, plain="blocked_attention",
+            library_max_abs_err=float((lib_out.float() - want.float())
+                                      .abs().max())))
+        del q, k, v, got, want, lib_out
+    return rows
+
+
+def _profile_split(what: str, fn, ranges) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: the device busy ms,
+    the idle share, and the device ms of the kernels launched inside
+    each of ``ranges`` (``record_function`` names; a kernel is counted
+    under the innermost of them that encloses its launch), the rest as
+    ``other``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    split = {name: 0.0 for name in ranges}
+    split["other"] = 0.0
+    for e in events:
+        kernels = getattr(e, "kernels", None) or []
+        if e.device_type != torch.autograd.DeviceType.CPU or not kernels:
+            continue
+        owner, up = "other", e
+        while up is not None:
+            if up.name in split:
+                owner = up.name
+                break
+            up = up.cpu_parent
+        split[owner] += sum(k.duration for k in kernels) / 1e3
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    span = ((max(e.time_range.end for e in ops)
+             - min(e.time_range.start for e in ops)) / 1e3) if ops else 0.0
+    rec = dict(device_busy_ms=busy, device_span_ms=span,
+               idle_share=(1 - busy / span) if span else None,
+               ops=len(ops), split_ms=split,
+               attributed_ms=sum(split.values()))
+    log(f"profile {what}: device_busy_ms={busy:.4f} span_ms={span:.4f} "
+        f"idle_share={rec['idle_share']} split_ms "
+        + json.dumps({k: round(v, 4) for k, v in split.items()}))
+    return rec
+
+
+def _routing_flips(a: list, b: list) -> float:
+    """The share of (token, layer) whose set of experts differs between
+    two runs' routings (``moe_apply``'s, one entry per layer)."""
+    differ = total = 0
+    for ra, rb in zip(a, b):
+        ea = ra["expert_idx"].cpu().sort(dim=-1).values
+        eb = rb["expert_idx"].cpu().sort(dim=-1).values
+        differ += int((ea != eb).any(dim=-1).sum())
+        total += ea[..., 0].numel()
+    return differ / total
+
+
+def _moe_serve(dev, name: str) -> tuple:
+    """(a)-(c) of phase 9 for one MoE: returns (record, K4 launches)."""
+    import dataclasses as dc
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.lm_demo import serve
+    from repro_torch.models.moe import STAGES, init_moe_lm, moe_prefill
+    full = get_arch(name).cfg
+    cfg = dc.replace(full, n_layers=MOE_LAYERS[name])
+    t0 = time.perf_counter()
+    params = init_moe_lm(cfg, torch.Generator(dev).manual_seed(MOE_SEED), dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    log(f"moe {name}: full width, {cfg.n_layers} of {full.n_layers} layers "
+        f"(depth the only cut), {cfg.n_params} parameters "
+        f"({cfg.n_active_params} active), {n_bytes} bytes, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flash_attention.launches = 0
+    served = serve(cfg, params, device=dev, **MOE_SERVE)
+    launches = flash_attention.launches
+    log(f"moe launches: {json.dumps({'flash_attention': launches})}")
+    if served["k4_launches"] != cfg.n_layers or launches != 2 * cfg.n_layers:
+        raise AssertionError(f"moe {name}: {served['k4_launches']} K4 "
+                             f"launches in the timed prefill, {launches} in "
+                             f"all, {cfg.n_layers} layers")
+    if not torch.isfinite(served["last_logits"]).all():
+        raise AssertionError(f"moe {name}: non-finite logits")
+    rec = {k: served[k] for k in (
+        "batch", "prompt_len", "gen", "prefill_ms", "decode_ms_per_token",
+        "k4_launches", "peak_bytes", "dropped_share")}
+    rec.update(layers=f"{cfg.n_layers} of {full.n_layers}",
+               n_params=cfg.n_params, n_active_params=cfg.n_active_params,
+               param_bytes=n_bytes,
+               token_ids=served["token_ids"][:, :8].tolist())
+    log(f"moe {name}: prefill_ms={rec['prefill_ms']:.4f} "
+        f"decode_ms_per_token={rec['decode_ms_per_token']:.4f} "
+        f"dropped_share={rec['dropped_share']} "
+        f"peak={(rec['peak_bytes'] or 0) / 1e9:.3f} GB")
+    got, served_routing = served["prefill_logits"], served["routing"]
+    del served
+    free_device_memory()
+
+    # (b) the served prefill (K4) against blocked_attention, same prompt
+    b, s = MOE_SERVE["batch"], MOE_SERVE["prompt_len"]
+    prompt = lm_batch(0, b, s, cfg.vocab)["tokens"]
+    plain_routing = []
+    want, _ = moe_prefill(cfg, params, prompt, impl="plain", device=dev,
+                          routing=plain_routing)
+    rec["routing_flip_share"] = _routing_flips(served_routing, plain_routing)
+    log(f"moe {name}: (token, layer) pairs whose experts differ between "
+        f"K4 and blocked_attention: {rec['routing_flip_share']}")
+    rec["k4_vs_plain"] = _lm_check(
+        f"{name} served prefill K4 vs blocked_attention B={b} S={s}", got,
+        want, MOE_LOGIT_TOL)
+    del got, want, served_routing, plain_routing
+    free_device_memory()
+    # (c) one profiled prefill: attention, routing, dispatch, the grouped
+    # GEMM, combine
+    rec["profile_prefill"] = _profile_split(
+        f"moe {name} prefill", lambda: moe_prefill(cfg, params, prompt,
+                                                   device=dev),
+        ("moe.attention",) + STAGES)
+    del params
+    free_device_memory()
+    return rec, launches
+
+
+def _moe_reckoning(cfg, batch: int, seq: int, micro: int) -> dict:
+    """Bytes the MoE train step holds before activations: bf16 params
+    and a microbatch's bf16 grads, f32 moments, f32 accumulators when
+    ``micro`` > 1, AdamW's two scratch buffers (the largest leaf in f32,
+    twice); and the dispatch buffer of one microbatch."""
+    n = cfg.n_params + cfg.n_layers * 3 * cfg.d_model + cfg.d_model
+    largest = max(cfg.n_experts * cfg.d_model * cfg.d_ff,
+                  cfg.vocab * cfg.d_model)
+    held = dict(params=2 * n, grads=2 * n, moments=8 * n,
+                accumulators=4 * n if micro > 1 else 0,
+                scratch=2 * 4 * largest)
+    tk = batch // micro * seq * cfg.top_k
+    cap = -(-tk // cfg.n_experts) * cfg.capacity_factor
+    held["dispatch_buffer_per_layer"] = int(2 * cfg.n_experts * cap
+                                            * cfg.d_model)
+    held["total_before_activations"] = sum(
+        held[k] for k in ("params", "grads", "moments", "accumulators",
+                          "scratch"))
+    return held
+
+
+def _moe_train(dev) -> dict:
+    """(d) qwen3-moe at full width and MOE_TRAIN_LAYERS layers."""
+    import dataclasses as dc
+    from repro_torch.configs import qwen3_moe_235b_a22b as qwen
+    from repro_torch.configs.base import lm_train_step
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.moe import init_moe_lm, moe_train_forward
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoopConfig, train_loop
+    cfg = dc.replace(qwen.CFG, n_layers=MOE_TRAIN_LAYERS)
+    b, s, mb = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO
+    held = _moe_reckoning(cfg, b, s, mb)
+    log(f"train {cfg.name}: full width, {cfg.n_layers} of "
+        f"{qwen.CFG.n_layers} layers, B={b} as {mb} microbatches, S={s}, "
+        f"remat={cfg.remat}; reckoned bytes {json.dumps(held)}")
+    params = init_moe_lm(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED),
+                         dev)
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(0, b, s, cfg.vocab).items()}
+    step = lm_train_step(cfg, b, s, microbatches=mb, device=dev,
+                         forward=moe_train_forward)
+    flash_attention.launches = 0
+    _, _, hist = train_loop(step, params, lambda i: batch,
+                            TrainLoopConfig(total_steps=1 + MOE_TRAIN_TIMED),
+                            opt_state=opt)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = _timed_rows(hist, MOE_TRAIN_TIMED, cfg.name)
+    tokens = b * s
+    pairs = b * sum(range(1, s + 1))
+    flops = 6 * cfg.n_active_params * tokens + 12 * cfg.n_layers \
+        * cfg.n_heads * cfg.d_head * pairs
+    rec.update(n_params=cfg.n_params, n_active_params=cfg.n_active_params,
+               tokens=tokens, peak_bytes=peak, reckoned=held,
+               tokens_per_s=tokens / (rec["ms"] / 1e3), model_flops=flops,
+               mfu=flops / (rec["ms"] / 1e3) / BF16_FLOPS_PER_S,
+               k4_launches=flash_attention.launches)
+    log(f"train {cfg.name}: ms/step={rec['ms']:.4f} tokens/s="
+        f"{rec['tokens_per_s']:.1f} model_flops={flops:.6e} (6*N_active*"
+        f"tokens + 12*L*H*dh*visible pairs) mfu={rec['mfu']:.4f} of "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s peak={peak / 1e9:.3f} GB "
+        f"K4 launches={flash_attention.launches}")
+    timed = rec["losses"][-MOE_TRAIN_TIMED:]
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"train {cfg.name}: the loss did not fall over "
+                             f"the timed steps: {rec['losses']}")
+    rec["profile"] = profile_request(f"train {cfg.name} step",
+                                     lambda: step(params, opt, batch))
+    if flash_attention.launches or _kernel_ops(rec["profile"]):
+        raise AssertionError(f"train {cfg.name}: K4 launched in training")
+    del params, opt, batch, step
+    free_device_memory()
+    return rec
+
+
+def _logits_close(what: str, got, want, tol: float, argmax: bool) -> float:
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    log(f"moe {what}: max_abs_err={err} tol={tol}")
+    if not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"moe {what}: logits differ by {err}, tol {tol}")
+    if argmax and not torch.equal(got.argmax(-1).cpu(),
+                                  want.argmax(-1).cpu()):
+        raise AssertionError(f"moe {what}: argmax differs")
+    return err
+
+
+def _moe_reduced(dev) -> dict:
+    """(e) the reduced MoEs, card against CPU from the same parameters:
+    prefill (routing equal in f32), 4 teacher-forced decode steps and
+    TRAIN_CHECK_STEPS train steps (TRAIN_TOL; bf16 MOE_BF16_TRAIN_TOL)."""
+    import copy
+    import dataclasses as dc
+    from repro_torch.configs.base import lm_train_step
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.moe import (init_moe_lm, moe_decode_step,
+                                        moe_prefill, moe_train_forward)
+    from repro_torch.train import TrainLoopConfig, train_loop
+    cpu = torch.device("cpu")
+    out = {}
+    for name in MOE_LAYERS:
+        for dt in ("float32", "bfloat16"):
+            cfg = dc.replace(get_arch(name).reduced_cfg, param_dtype=dt)
+            what = f"{name}-reduced {dt}"
+            f32 = dt == "float32"
+            first = init_moe_lm(cfg, torch.Generator().manual_seed(
+                TRAIN_SEED), cpu)
+            card = copy.deepcopy(first).to(dev)
+            toks = lm_batch(2, 2, 36, cfg.vocab)["tokens"]
+            rc, rg = [], []
+            lc, cc = moe_prefill(cfg, first, toks[:, :32], device=cpu,
+                                 routing=rc)
+            lg, cg = moe_prefill(cfg, card, toks[:, :32], device=dev,
+                                 routing=rg)
+            tol = 1e-4 if f32 else LM_LOGIT_TOL
+            rec = dict(prefill=_logits_close(f"{what} prefill card vs CPU",
+                                             lg, lc, tol, f32))
+            if f32:
+                for i, (a, b) in enumerate(zip(rg, rc)):
+                    if not (torch.equal(a["expert_idx"].cpu(),
+                                        b["expert_idx"])
+                            and torch.equal(a["keep"].cpu(), b["keep"])):
+                        raise AssertionError(f"moe {what}: layer {i} routes "
+                                             "otherwise on the card")
+            rec["routing_flip_share"] = _routing_flips(rg, rc)
+            shape = (cfg.n_layers, 2, cfg.n_kv_heads, 36, cfg.d_head)
+            caches = []
+            for d, c in ((cpu, cc), (dev, cg)):
+                kc = torch.zeros(shape, dtype=cfg.dtype, device=d)
+                vc = torch.zeros_like(kc)
+                kc[:, :, :, :32], vc[:, :, :, :32] = c
+                caches.append((kc, vc))
+            errs = []
+            for i in range(4):
+                tok = toks[:, 32 + i:33 + i]
+                dc_, _ = moe_decode_step(cfg, first, tok, caches[0], 32 + i,
+                                         device=cpu)
+                dg, _ = moe_decode_step(cfg, card, tok, caches[1], 32 + i,
+                                        device=dev)
+                errs.append(_logits_close(f"{what} decode {i} card vs CPU",
+                                          dg[:, 0], dc_[:, 0], tol, f32))
+            rec["decode"] = max(errs)
+            runs = []
+            for d in (dev, cpu):
+                params = copy.deepcopy(first).to(d)
+                _, _, hist = train_loop(
+                    lm_train_step(cfg, 4, 32, microbatches=2, device=d,
+                                  forward=moe_train_forward), params,
+                    lambda s, d=d: {k: torch.from_numpy(v).to(d) for k, v
+                                    in lm_batch(s, 4, 32, cfg.vocab).items()},
+                    TrainLoopConfig(total_steps=TRAIN_CHECK_STEPS))
+                runs.append((hist, params))
+            (ch, cp), (wh, wp) = runs
+            rec["train"] = _same_training(
+                f"{what} card vs CPU", ch, wh, cp, wp, cfg.dtype, first,
+                None if f32 else MOE_BF16_TRAIN_TOL)
+            out[what] = rec
+    return out
+
+
+def moe_phase(dev) -> tuple:
+    """Phase 9: the MoE LMs.  Returns (record, K4 launches per arch)."""
+    record, launches = {}, {}
+    for name in MOE_LAYERS:
+        record[name], launches[name] = _moe_serve(dev, name)
+    record["train"] = _moe_train(dev)
+    record["reduced"] = _moe_reduced(dev)
+    free_device_memory()
+    return record, launches
+
+
+def _molecules(n_graphs: int, seed: int) -> dict:
+    """``n_graphs`` molecules of MOLECULE["atoms"] atoms each (positions
+    N(0, 1.5^2) Å, species 1..9) with MOLECULE["edges"] directed edges
+    each between distinct atoms of the molecule; the GNN_SHAPES molecule
+    cell at 128 graphs: 3,840 atoms, 16,384 edges."""
+    rng = np.random.default_rng(seed)
+    a, m = MOLECULE["atoms"], MOLECULE["edges"]
+    n = n_graphs * a
+    src = rng.integers(0, a, (n_graphs, m))
+    dst = (src + rng.integers(1, a, (n_graphs, m))) % a
+    off = (np.arange(n_graphs) * a)[:, None]
+    return {"species": rng.integers(1, 10, n).astype(np.int32),
+            "positions": (rng.standard_normal((n, 3)) * 1.5)
+            .astype(np.float32),
+            "src": (src + off).reshape(-1).astype(np.int32),
+            "dst": (dst + off).reshape(-1).astype(np.int32),
+            "graph_ids": np.repeat(np.arange(n_graphs), a).astype(np.int32),
+            "energy": rng.standard_normal(n_graphs).astype(np.float32)}
+
+
+def _sampled_tree(dims: dict):
+    """The ``minibatch_lg`` shape as a GraphSAGE computation tree: 1,024
+    seeds of a ``powerlaw_graph`` of the shape's node count, 10 sampled
+    in-neighbours each (``NeighborSampler.sample_hop``), 15 of each of
+    those; nodes numbered seeds, then hop 1, then hop 2, edges from a
+    sampled node to the node that sampled it: exactly the shape's
+    164,864 nodes and 163,840 edges."""
+    from repro_torch.graph import Graph, NeighborSampler, powerlaw_graph
+    n = dims["n_nodes"]
+    base = powerlaw_graph(n, dims["n_edges"] // 2, alpha=1.0, seed=GNN_SEED,
+                          block_size=1024)
+    sampler = NeighborSampler(base, MINIBATCH_FANOUTS, seed=GNN_SEED)
+    seeds = np.random.default_rng(GNN_SEED).choice(
+        n, MINIBATCH_SEEDS, replace=False)
+    hop1 = sampler.sample_hop(seeds, MINIBATCH_FANOUTS[0])
+    hop2 = sampler.sample_hop(hop1.src_global, MINIBATCH_FANOUTS[1])
+    if not (hop1.edge_mask.all() and hop2.edge_mask.all()):
+        raise AssertionError("minibatch_lg: a sampled node has no in-edge")
+    n1 = len(seeds)
+    n2 = n1 + len(hop1.src_global)
+    src = np.concatenate([n1 + np.arange(len(hop1.src_global)),
+                          n2 + np.arange(len(hop2.src_global))])
+    dst = np.concatenate([hop1.dst_local, n1 + hop2.dst_local])
+    tree = Graph.from_coo(src, dst, n2 + len(hop2.src_global),
+                          block_size=1024)
+    if (tree.n_nodes, tree.n_edges) != (n, dims["n_edges"]):
+        raise AssertionError(f"minibatch_lg: {tree.n_nodes} nodes, "
+                             f"{tree.n_edges} edges")
+    return tree
+
+
+def _gnn_inputs(name: str, shape: str, cfg) -> dict:
+    """The batch of one GNN cell as numpy arrays: ``full_graph_sm`` a
+    ``powerlaw_graph`` of the shape's nodes and, symmetrized, about its
+    edges; ``minibatch_lg`` the sampled tree; ``molecule`` the
+    molecules."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.synthetic import gnn_batch
+    from repro_torch.graph import powerlaw_graph
+    dims = GNN_SHAPES[shape]
+    if shape == "molecule":
+        return _molecules(dims["n_graphs"], GNN_SEED)
+    if shape == "minibatch_lg":
+        g = _sampled_tree(dims)
+    else:
+        g = powerlaw_graph(dims["n_nodes"], dims["n_edges"] // 2, alpha=1.0,
+                           seed=GNN_SEED, block_size=1024)
+    if name == "pna":
+        return gnn_batch(0, g, cfg.d_in, cfg.n_classes, seed=GNN_SEED)
+    rng = np.random.default_rng(GNN_SEED)
+    n, e = g.n_nodes, g.n_edges
+    return {"src": np.asarray(g.src, np.int32),
+            "dst": np.asarray(g.dst, np.int32),
+            "node_feat": rng.standard_normal((n, cfg.d_node_in))
+            .astype(np.float32),
+            "edge_feat": rng.standard_normal((e, cfg.d_edge_in))
+            .astype(np.float32),
+            "target": rng.standard_normal((n, cfg.d_out)).astype(np.float32)}
+
+
+def _gnn_train(dev, name: str, shape: str, cfg=None, params=None,
+               profile: bool = True) -> tuple:
+    """1 untimed + GNN_TIMED steps of one GNN cell on one repeated batch
+    (AdamW at lr 1e-3); returns (record, the parameters after)."""
+    from repro_torch.configs.base import loss_train_step
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoopConfig, train_loop
+    arch = get_arch(name)
+    cfg = cfg or arch.cfg_for(shape)
+    arrays = _gnn_inputs(name, shape, cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    if params is None:
+        params = arch.init_params(
+            cfg, torch.Generator(dev).manual_seed(GNN_SEED), dev)
+    opt = adamw_init(params)
+    step = loss_train_step(cfg, arch.loss, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, hist = train_loop(step, params, lambda i: batch,
+                            TrainLoopConfig(total_steps=1 + GNN_TIMED),
+                            opt_state=opt)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    what = f"{name} {shape} {cfg.sys.name}"
+    rec = _timed_rows(hist, GNN_TIMED, what)
+    timed = rec["losses"][-GNN_TIMED:]
+    rec.update(nodes=len(arrays["species"] if shape == "molecule"
+                         else arrays["node_feat"]), edges=len(arrays["src"]),
+               n_params=sum(p.numel() for p in params.parameters()),
+               peak_bytes=peak, config=cfg.sys.name,
+               loss_fell=bool(timed[-1] < timed[0]))
+    log(f"gnn {what}: ms/step={rec['ms']:.4f} peak={peak / 1e9:.3f} GB "
+        f"edges={rec['edges']} params={rec['n_params']} "
+        f"loss_fell={rec['loss_fell']}")
+    if profile:
+        rec["profile"] = profile_request(f"gnn {what} step",
+                                         lambda: step(params, opt, batch))
+    del opt, batch
+    return rec, params
+
+
+def _gnn_reduced(dev) -> dict:
+    """The reduced GNNs: TRAIN_CHECK_STEPS steps on the card against the
+    CPU from the same parameters, on ``launch.train``'s batches, at
+    TRAIN_TOL (EquiformerV2 at its bf16 row: its edge tensors are
+    bf16)."""
+    import copy
+    from repro_torch.configs.base import loss_train_step
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import _gnn_arrays
+    from repro_torch.train import TrainLoopConfig, train_loop
+    cpu = torch.device("cpu")
+    out = {}
+    for name in GNN_MODELS:
+        arch = get_arch(name)
+        cfg = arch.reduced_cfg
+        first = arch.init_params(cfg, torch.Generator().manual_seed(
+            TRAIN_SEED), cpu)
+        runs = []
+        for d in (dev, cpu):
+            arrays = _gnn_arrays(arch, cfg)
+            params = copy.deepcopy(first).to(d)
+            _, _, hist = train_loop(
+                loss_train_step(cfg, arch.loss, device=d), params,
+                lambda s, d=d, arrays=arrays: {
+                    k: torch.from_numpy(v).to(d)
+                    for k, v in arrays(s).items()},
+                TrainLoopConfig(total_steps=TRAIN_CHECK_STEPS))
+            runs.append((hist, params))
+        (ch, cp), (wh, wp) = runs
+        dtype = torch.bfloat16 if name == "equiformer-v2" else torch.float32
+        out[name] = _same_training(f"{name}-reduced card vs CPU", ch, wh, cp,
+                                   wp, dtype, first)
+    return out
+
+
+def _equiformer_invariance(dev) -> float:
+    """``tests/test_models.py::test_equiformer_rotation_invariance`` on
+    the card: the reduced EquiformerV2's energies of a rotated molecule
+    within 5e-3 of the original's (relative to the largest)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.gnn.equiformer_v2 import (equiformer_forward,
+                                                      init_equiformer)
+    cfg = get_arch("equiformer-v2").reduced_cfg
+    params = init_equiformer(cfg, torch.Generator(dev).manual_seed(0), dev)
+    rng = np.random.default_rng(1)
+    n, e, g = 48, 128, cfg.n_graphs
+    batch = {"species": rng.integers(0, 10, n).astype(np.int32),
+             "positions": rng.standard_normal((n, 3)).astype(np.float32) * 2,
+             "src": rng.integers(0, n, e).astype(np.int32),
+             "dst": rng.integers(0, n, e).astype(np.int32),
+             "graph_ids": (np.arange(n) % g).astype(np.int32)}
+    rot = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    if np.linalg.det(rot) < 0:
+        rot[:, 0] *= -1
+    with torch.no_grad():
+        e1 = equiformer_forward(cfg, params, batch, device=dev)
+        e2 = equiformer_forward(cfg, params, dict(
+            batch, positions=batch["positions"] @ rot.T.astype(np.float32)),
+            device=dev)
+    rel = float((e1 - e2).abs().max() / (e1.abs().max() + 1e-9))
+    log(f"gnn equiformer-v2 rotation invariance on the card: rel={rel} "
+        "(limit 5e-3)")
+    if not rel < 5e-3:
+        raise AssertionError(f"equiformer rotation invariance: {rel}")
+    return rel
+
+
+def gnn_phase(dev) -> dict:
+    """Phase 10: the GNNs train.  Returns the record."""
+    import copy
+    import dataclasses as dc
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.gnn.common import GNN_CONFIGS
+    record = {"cells": {}}
+    ogb = GNN_SHAPES["ogb_products"]
+    h = get_arch("pna").cfg_for("ogb_products").d_hidden
+    record["ogb_products_reckoned"] = dict(
+        edges=ogb["n_edges"], first_edge_mlp_input_bytes=ogb["n_edges"]
+        * 2 * h * 4)
+    log(f"gnn ogb_products: not run; PNA's first edge-MLP input alone is "
+        f"[{ogb['n_edges']}, {2 * h}] f32 = "
+        f"{ogb['n_edges'] * 2 * h * 4 / 1e9:.1f} GB before the backward "
+        "keeps it (waits for the sharding pieces)")
+    for name, shape in GNN_CELLS:
+        rec, params = _gnn_train(dev, name, shape)
+        record["cells"][f"{name}/{shape}"] = rec
+        del params
+        free_device_memory()
+    # PNA at minibatch_lg under each coherence x consistency config, from
+    # the same parameters
+    name, shape = GNN_CONFIG_CELL
+    arch = get_arch(name)
+    base_cfg = arch.cfg_for(shape)
+    first = arch.init_params(base_cfg, torch.Generator(dev).manual_seed(
+        GNN_SEED), dev)
+    configs = {}
+    for sc in GNN_CONFIGS:
+        cfg = dc.replace(base_cfg, sys=sc)
+        configs[sc.name], params = _gnn_train(
+            dev, name, shape, cfg=cfg, params=copy.deepcopy(first),
+            profile=False)
+        del params
+    ref = configs["SG0"]["losses"]
+    for c, rec in configs.items():
+        rec["max_loss_diff_vs_SG0"] = max(abs(a - b) for a, b in
+                                         zip(rec["losses"], ref))
+    log("gnn pna minibatch_lg configs: " + " ".join(
+        f"{c}={r['ms']:.4f}ms/dloss={r['max_loss_diff_vs_SG0']:.3e}"
+        for c, r in configs.items()))
+    record["pna_configs"] = configs
+    del first
+    free_device_memory()
+    record["equiformer_rotation_rel"] = _equiformer_invariance(dev)
+    record["reduced"] = _gnn_reduced(dev)
     free_device_memory()
     return record
 
@@ -3356,6 +4031,7 @@ def main() -> int:
     rows += embag_rows(dev, flush)
     free_device_memory()
     rows += attention_rows(dev, flush)
+    rows += moe_attention_rows(dev, flush)
     del flush
     free_device_memory()
 
@@ -3425,12 +4101,25 @@ def main() -> int:
     # 8. training: DLRM's train_batch, starcoder2-7b, card against CPU
     train = train_phase(dev)
     clock.lap("8 training")
+    free_device_memory()
+
+    # 9. the MoE LMs: K4 once per layer of each served prefill
+    moe, moe_launches = moe_phase(dev)
+    clock.lap("9 moe")
+
+    # 10. the GNNs train through aggregate's coherence x consistency
+    gnn = gnn_phase(dev)
+    clock.lap("10 gnn")
     for row in rows:
         row["launches"] = launches[row["kernel"]]
         if row["kernel"] == "flash_attention":
             row["attention_launches"] = attn_launches
             row["command_r_launches"] = cr_launches
-            if attn_launches <= 0 or cr_launches <= 0:
+            row["moe_launches"] = moe_launches
+            if "arch" in row:  # the MoE prefill shapes: that path's count
+                row["launches"] = moe_launches[row["arch"]]
+            if attn_launches <= 0 or cr_launches <= 0 or \
+                    min(moe_launches.values()) <= 0:
                 raise AssertionError(f"{row['name']}: no launch on a path")
         if row["kernel"] in device_launches:
             row["device_launches"] = device_launches[row["kernel"]]
@@ -3469,9 +4158,9 @@ def main() -> int:
                                    harnesses=harnesses,
                                    harness_launches=harness_launches,
                                    dlrm=dlrm, attention=attn, lm=lm,
-                                   train=train,
+                                   train=train, moe=moe, gnn=gnn,
                                    phase_seconds=clock.seconds), indent=1))
-    # 9. the kernel table, then the last line
+    # 11. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))
     log(last)
     return 0

@@ -1,30 +1,33 @@
 """--arch lookup (counterpart of ``repro.configs.registry``): the same
-names, each with its full config, its reduced one and its family.
-
-Only the archs the port has modules for resolve: the three dense LMs and
-DLRM-MLPerf.  The MoE LMs and the GNNs raise ``NotImplementedError``
-until their slices land.
+ten names, each with its full config, its reduced one, its family, its
+initialiser and its training loss.  A GNN's full config depends on the
+input shape: ``Arch.cfg`` is the reference's ``cfg0`` (the molecule
+shape for SchNet and EquiformerV2, ``full_graph_sm`` for the others),
+and ``Arch.cfg_for(shape)`` gives any of ``GNN_SHAPES``' configs, as
+``make_gnn_arch``'s cells do.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 from functools import lru_cache
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 __all__ = ["ARCH_NAMES", "Arch", "get_arch"]
 
-#: name -> (family, the port's module, or None before it is ported)
+#: name -> (family, the port's config module)
 _MODULES = {
     "command-r-plus-104b": ("lm", "repro_torch.configs.command_r_plus_104b"),
     "command-r-35b": ("lm", "repro_torch.configs.command_r_35b"),
     "starcoder2-7b": ("lm", "repro_torch.configs.starcoder2_7b"),
-    "qwen3-moe-235b-a22b": ("moe", None),
-    "grok-1-314b": ("moe", None),
-    "meshgraphnet": ("gnn", None),
-    "schnet": ("gnn", None),
-    "pna": ("gnn", None),
-    "equiformer-v2": ("gnn", None),
+    "qwen3-moe-235b-a22b": ("moe",
+                            "repro_torch.configs.qwen3_moe_235b_a22b"),
+    "grok-1-314b": ("moe", "repro_torch.configs.grok_1_314b"),
+    "meshgraphnet": ("gnn", "repro_torch.configs.meshgraphnet"),
+    "schnet": ("gnn", "repro_torch.configs.schnet"),
+    "pna": ("gnn", "repro_torch.configs.pna"),
+    "equiformer-v2": ("gnn", "repro_torch.configs.equiformer_v2"),
     "dlrm-mlperf": ("recsys", "repro_torch.configs.dlrm_mlperf"),
 }
 
@@ -37,9 +40,14 @@ class Arch:
     family: str       # lm | moe | gnn | recsys, as the reference's
     cfg: Any
     reduced_cfg: Any
-    #: (cfg, generator, device=None) -> parameters: ``init_lm`` or
-    #: ``init_dlrm``
+    #: (cfg, generator, device=None) -> parameters
     init_params: Callable[..., Any]
+    #: (cfg, params, batch, device=None) -> the training loss (f32
+    #: scalar): ``train_forward``, ``moe_train_forward``, a GNN's loss,
+    #: or ``dlrm_loss`` through the plain embedding bag
+    loss: Callable[..., Any]
+    #: GNNs: shape name of ``GNN_SHAPES`` -> that shape's config
+    cfg_for: Optional[Callable[[str], Any]] = None
 
 
 @lru_cache(maxsize=None)
@@ -47,13 +55,22 @@ def get_arch(name: str) -> Arch:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; one of {ARCH_NAMES}")
     family, module = _MODULES[name]
-    if module is None:
-        raise NotImplementedError(
-            f"{name}: the {family} family is not ported to repro_torch yet "
-            f"(ROADMAP.md, queue 1)")
     mod = importlib.import_module(module)
     if family == "recsys":
-        from repro_torch.models.dlrm import init_dlrm as init
-    else:
-        from repro_torch.models.transformer import init_lm as init
-    return Arch(name, family, mod.CFG, mod.REDUCED, init)
+        from repro_torch.models.dlrm import dlrm_loss, init_dlrm
+        return Arch(name, family, mod.CFG, mod.REDUCED, init_dlrm,
+                    functools.partial(dlrm_loss, impl="plain"))
+    if family == "lm":
+        from repro_torch.models.transformer import init_lm, train_forward
+        return Arch(name, family, mod.CFG, mod.REDUCED, init_lm,
+                    train_forward)
+    if family == "moe":
+        from repro_torch.models.moe import init_moe_lm, moe_train_forward
+        return Arch(name, family, mod.CFG, mod.REDUCED, init_moe_lm,
+                    moe_train_forward)
+    from repro_torch.configs.base import GNN_SHAPES
+    first = "molecule" if mod.KIND in ("schnet", "equiformer") \
+        else "full_graph_sm"
+    return Arch(name, family, mod.builder(GNN_SHAPES[first]), mod.REDUCED,
+                mod.INIT, mod.LOSS,
+                cfg_for=lambda shape: mod.builder(GNN_SHAPES[shape]))

@@ -2,14 +2,13 @@
 
 Deterministic per (seed, step): numpy's ``default_rng((seed, step))``
 draws the same arrays as the reference, so both packages see identical
-batches.  The LM and DLRM sources are ported; the GNN source comes with
-the GNNs.
+batches.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lm_batch", "dlrm_batch"]
+__all__ = ["lm_batch", "gnn_batch", "dlrm_batch"]
 
 
 def lm_batch(step: int, batch: int, seq: int, vocab: int, seed: int = 0):
@@ -21,6 +20,23 @@ def lm_batch(step: int, batch: int, seq: int, vocab: int, seed: int = 0):
     tok = rng.zipf(1.3, size=(batch, seq + 1)).astype(np.int64) % vocab
     return {"tokens": tok[:, :-1].astype(np.int32),
             "labels": tok[:, 1:].astype(np.int32)}
+
+
+def gnn_batch(step: int, graph, d_feat: int, n_classes: int, seed: int = 0):
+    """One node-classification batch on ``graph`` (a host
+    ``repro_torch.graph.Graph``) as numpy arrays (``synthetic.py:19-28``,
+    copied exactly): node_feat [N, d_feat] f32, the by-src edge list src
+    and dst [E] int32, in_degree [N] int32 and labels [N] int32 in
+    ``[0, n_classes)``."""
+    rng = np.random.default_rng((seed, step))
+    n = graph.n_nodes
+    return {
+        "node_feat": rng.standard_normal((n, d_feat)).astype(np.float32),
+        "src": np.asarray(graph.src, np.int32),
+        "dst": np.asarray(graph.dst, np.int32),
+        "in_degree": np.asarray(graph.in_degree, np.int32),
+        "labels": rng.integers(0, n_classes, n).astype(np.int32),
+    }
 
 
 def dlrm_batch(step: int, batch: int, vocab_sizes, multi_hot: int = 1,

@@ -1,10 +1,12 @@
-"""LM serving demo: prefill + batched KV-cache decode for a dense LM
-(counterpart of ``repro.launch.lm_demo``).
+"""LM serving demo: prefill + batched KV-cache decode for a dense or a
+MoE LM (counterpart of ``repro.launch.lm_demo``).
 
     PYTHONPATH=src python -m repro_torch.launch.lm_demo --arch starcoder2-7b \\
         --batch 4 --prompt-len 8192 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.lm_demo --device cpu \\
         --width reduced --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.lm_demo --device cpu \\
+        --arch qwen3-moe-235b-a22b --batch 2 --prompt-len 32 --gen 8
 
 The reference always serves the reduced config, because it runs on a
 CPU.  The port serves the published widths on the card (``--width
@@ -16,8 +18,11 @@ from ``torch.Generator`` seed 0; the prompt is
 The run prints prefill ms, decode ms per token (the host clock around
 work that ends in ``torch.cuda.synchronize``, after one untimed prefill
 and decode step at the same shapes), K4's launches in the timed prefill
-(one per layer on the card) and the peak device memory
-(``max_memory_allocated``), and :func:`main` returns them.
+(one per layer on the card), for a MoE the share of (token, expert)
+assignments its timed prefill dropped at capacity, and the peak device
+memory (``max_memory_allocated``), and :func:`main` returns them.  A
+MoE (family ``moe``, a ``MoEConfig``) is served by ``moe_prefill`` and
+``moe_decode_step``, as the reference's ``lm_demo.py:37-40`` does.
 """
 from __future__ import annotations
 
@@ -32,8 +37,9 @@ from repro_torch.data.synthetic import lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                        kernel_info)
+from repro_torch.models.moe import MoEConfig, moe_decode_step, moe_prefill
 from repro_torch.models.transformer import (LM, LMConfig, decode_step,
-                                            init_lm, prefill)
+                                            prefill)
 
 __all__ = ["main", "serve", "LM_ARCHS"]
 
@@ -55,8 +61,13 @@ def serve(cfg: LMConfig, params: LM, *, batch: int, prompt_len: int,
     step at the same shapes go first, so that the clock reads neither
     the process's first call at these shapes nor the allocator's growth.
     Returns the timings, K4's launches in the timed prefill, its logits,
-    the peak memory and the generated ids."""
+    the peak memory and the generated ids; for a MoE also the timed
+    prefill's routing (``moe_apply``'s, one entry per layer) and the
+    share of its assignments dropped at capacity."""
     device = resolve_device(device)
+    moe = isinstance(cfg, MoEConfig)
+    run_prefill = moe_prefill if moe else prefill
+    run_decode = moe_decode_step if moe else decode_step
     on_card = device.type == "cuda"
     if on_card:
         kernel_info(cfg.dtype, cfg.d_head)  # K4 built before the clock
@@ -67,19 +78,29 @@ def serve(cfg: LMConfig, params: LM, *, batch: int, prompt_len: int,
     kc = torch.zeros((cfg.n_layers, b, cfg.n_kv_heads, smax, cfg.d_head),
                      dtype=torch.bfloat16, device=device)
     vc = torch.zeros_like(kc)
-    logits, cache = prefill(cfg, params, prompt, device=device)  # warm-up
+    logits, cache = run_prefill(cfg, params, prompt,
+                                device=device)  # warm-up
     del cache
     if gen:
-        decode_step(cfg, params, logits.argmax(-1)[:, None], (kc, vc), s,
+        run_decode(cfg, params, logits.argmax(-1)[:, None], (kc, vc), s,
                     device=device)
     launches = flash_attention.launches
     _sync(device)
+    routing = [] if moe else None
+    kw = dict(routing=routing) if moe else {}
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, prompt, device=device)
+    logits, cache = run_prefill(cfg, params, prompt, device=device, **kw)
     _sync(device)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     k4 = flash_attention.launches - launches
     print(f"prefill[{b}x{s}]: {prefill_ms:.1f} ms, K4 launches {k4}")
+    dropped = None
+    if moe:
+        kept = sum(int(r["keep"].sum()) for r in routing)
+        total = sum(r["keep"].numel() for r in routing)
+        dropped = 1.0 - kept / total
+        print(f"moe: {dropped:.6f} of the prefill's {total} (token, expert) "
+              "assignments dropped at capacity")
 
     kc[:, :, :, :s] = cache[0]
     vc[:, :, :, :s] = cache[1]
@@ -89,8 +110,8 @@ def serve(cfg: LMConfig, params: LM, *, batch: int, prompt_len: int,
     _sync(device)
     t0 = time.perf_counter()
     for i in range(gen):
-        lg, (kc, vc) = decode_step(cfg, params, tok, (kc, vc), s + i,
-                                   device=device)
+        lg, (kc, vc) = run_decode(cfg, params, tok, (kc, vc), s + i,
+                                  device=device)
         tok = lg[:, 0].argmax(-1)[:, None]
         outs.append(tok[:, 0])
     _sync(device)
@@ -105,7 +126,8 @@ def serve(cfg: LMConfig, params: LM, *, batch: int, prompt_len: int,
                 prompt_len=s, gen=gen, prefill_ms=prefill_ms,
                 decode_ms_per_token=decode_ms, k4_launches=k4,
                 peak_bytes=peak, token_ids=ids, prefill_logits=logits,
-                last_logits=lg[:, 0] if gen else logits)
+                last_logits=lg[:, 0] if gen else logits, routing=routing,
+                dropped_share=dropped)
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -122,12 +144,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    arch = get_arch(args.arch)  # the MoEs raise: not ported yet
+    arch = get_arch(args.arch)
     width = args.width or ("full" if device.type == "cuda" else "reduced")
     cfg = arch.cfg if width == "full" else arch.reduced_cfg
     print(f"{cfg.name} ({width} width, {cfg.n_layers} layers, "
           f"{cfg.n_params / 1e9:.2f} B parameters) on {device}")
-    params = init_lm(cfg, torch.Generator(device).manual_seed(0), device)
+    params = arch.init_params(cfg, torch.Generator(device).manual_seed(0),
+                              device)
     return serve(cfg, params, batch=args.batch, prompt_len=args.prompt_len,
                  gen=args.gen, device=device)
 

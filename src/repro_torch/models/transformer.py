@@ -34,7 +34,7 @@ fields of :class:`LMConfig` come with the sharding pieces.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,18 +135,24 @@ class LM(nn.Module):
         return self.embed.device
 
 
-def _init_block(cfg: LMConfig, generator: torch.Generator,
-                device) -> Block:
+def _init_attention(cfg: LMConfig, generator: torch.Generator,
+                    device) -> Attention:
     dt, h = cfg.dtype, cfg.d_head
     kw = dict(generator=generator, device=device)
-    attn = Attention(
+    return Attention(
         L.init_dense(cfg.d_model, cfg.n_heads * h, cfg.use_bias, dt, **kw),
         L.init_dense(cfg.d_model, cfg.n_kv_heads * h, cfg.use_bias, dt, **kw),
         L.init_dense(cfg.d_model, cfg.n_kv_heads * h, cfg.use_bias, dt, **kw),
         L.init_dense(cfg.n_heads * h, cfg.d_model, cfg.use_bias, dt, **kw))
+
+
+def _init_block(cfg: LMConfig, generator: torch.Generator,
+                device) -> Block:
+    dt = cfg.dtype
+    attn = _init_attention(cfg, generator, device)
     return Block(L.init_norm(cfg.d_model, dt, device=device), attn,
                  L.init_mlp(cfg.d_model, cfg.d_ff, cfg.act, cfg.use_bias, dt,
-                            **kw),
+                            generator=generator, device=device),
                  None if cfg.parallel_block
                  else L.init_norm(cfg.d_model, dt, device=device))
 
@@ -175,37 +181,49 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _layer_tensors(tree: Mapping, i: int, device) -> dict:
+    """Layer ``i`` of a reference pytree stacked along a leading layer
+    axis, as tensors on ``device``."""
+    return {k: _layer_tensors(v, i, device) if isinstance(v, Mapping) else
+            _tensor(np.asarray(v)[i], device) for k, v in tree.items()}
+
+
+def _dense_of(p: Mapping) -> L.Dense:
+    return L.Dense(p["w"], p.get("b"))
+
+
+def _norm_of(p: Mapping) -> L.Norm:
+    return L.Norm(p["scale"], p.get("bias"))
+
+
+def _attention_of(a: Mapping) -> Attention:
+    return Attention(*(_dense_of(a[k]) for k in ("wq", "wk", "wv", "wo")))
+
+
+def _lm_of(params_np: Mapping, blocks, device) -> LM:
+    """An :class:`LM` of ``blocks`` with the reference's embedding and
+    final norm."""
+    final = {k: _tensor(v, device)
+             for k, v in params_np["final_norm"].items()}
+    return LM(_tensor(params_np["embed"], device), blocks, _norm_of(final))
+
+
 def lm_params_from_jax(params_np: Mapping, cfg: LMConfig,
                        device=None) -> LM:
     """The port's :class:`LM` holding the parameters of
     ``repro.models.transformer.init_lm`` (a pytree of numpy arrays whose
     ``blocks`` are stacked along a leading layer axis of ``n_layers``)."""
     device = resolve_device(device)
-
-    def layer(tree, i):
-        return {k: layer(v, i) if isinstance(v, Mapping) else
-                _tensor(np.asarray(v)[i], device) for k, v in tree.items()}
-
-    def dense(p):
-        return L.Dense(p["w"], p.get("b"))
-
-    def norm(p):
-        return L.Norm(p["scale"], p.get("bias"))
-
     blocks = []
     for i in range(cfg.n_layers):
-        p = layer(params_np["blocks"], i)
-        a, m = p["attn"], p["mlp"]
+        p = _layer_tensors(params_np["blocks"], i, device)
+        m = p["mlp"]
         blocks.append(Block(
-            norm(p["ln1"]),
-            Attention(dense(a["wq"]), dense(a["wk"]), dense(a["wv"]),
-                      dense(a["wo"])),
-            L.MLP(dense(m["up"]), dense(m["down"]),
-                  dense(m["gate"]) if "gate" in m else None),
-            norm(p["ln2"]) if "ln2" in p else None))
-    final = {k: _tensor(v, device)
-             for k, v in params_np["final_norm"].items()}
-    return LM(_tensor(params_np["embed"], device), blocks, norm(final))
+            _norm_of(p["ln1"]), _attention_of(p["attn"]),
+            L.MLP(_dense_of(m["up"]), _dense_of(m["down"]),
+                  _dense_of(m["gate"]) if "gate" in m else None),
+            _norm_of(p["ln2"]) if "ln2" in p else None))
+    return _lm_of(params_np, blocks, device)
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +374,14 @@ def prefill(cfg: LMConfig, params: LM, tokens, *, impl: str = "kernel",
     [L,B,Hkv,S,dh]) (``transformer.py:228-248``).  ``impl="plain"`` runs
     K4's plain version (``layers.blocked_attention``) on the card too,
     for comparison."""
+    return _prefill(cfg, params, tokens, impl, device, _block)
+
+
+def _prefill(cfg: LMConfig, params: LM, tokens, impl: str, device,
+             layer: Callable):
+    """The causal stack of :func:`prefill`, each layer run by ``layer(cfg,
+    p, x, positions, impl=impl) -> (x, (k, v))``: ``_block`` here, the
+    MoE block in ``models.moe``."""
     tokens = _on(params, tokens, device)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -364,7 +390,7 @@ def prefill(cfg: LMConfig, params: LM, tokens, *, impl: str = "kernel",
     ks = torch.empty(shape, dtype=x.dtype, device=x.device)
     vs = torch.empty_like(ks)
     for i, p in enumerate(params.blocks):
-        x, (ks[i], vs[i]) = _block(cfg, p, x, positions, impl=impl)
+        x, (ks[i], vs[i]) = layer(cfg, p, x, positions, impl=impl)
     return _logits(cfg, params, x[:, -1:, :])[:, 0], (ks, vs)
 
 
@@ -375,6 +401,13 @@ def decode_step(cfg: LMConfig, params: LM, token, cache, kv_len: int, *,
     already in it -> (logits [B,1,V] f32, cache) (``transformer.py:
     251-270``).  The token's K and V are written into ``cache`` in place
     at ``kv_len``, and the same tensors are returned."""
+    return _decode(cfg, params, token, cache, kv_len, device, _block)
+
+
+def _decode(cfg: LMConfig, params: LM, token, cache, kv_len: int, device,
+            layer: Callable):
+    """One token through the stack against the cache, each layer run by
+    ``layer(cfg, p, x, positions, kv=, kv_len=) -> (x, cache)``."""
     token = _on(params, token, device)
     kc, vc = cache
     kv_len = int(kv_len)
@@ -386,6 +419,5 @@ def decode_step(cfg: LMConfig, params: LM, token, cache, kv_len: int, *,
                            device=token.device)
     x = params.embed[token]
     for i, p in enumerate(params.blocks):
-        x, _ = _block(cfg, p, x, positions, kv=(kc[i], vc[i]),
-                      kv_len=kv_len)
+        x, _ = layer(cfg, p, x, positions, kv=(kc[i], vc[i]), kv_len=kv_len)
     return _logits(cfg, params, x), (kc, vc)

@@ -1533,3 +1533,192 @@ def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
         assert torch.equal(like[k].view(torch.int16) if k == "h" else
                            like[k], tree[k].view(torch.int16) if k == "h"
                            else tree[k])
+
+
+# ---------------------------------------------------------------------------
+# the MoE LMs and the GNNs (K4 in the MoE prefill; the GNNs' aggregate is
+# the plain scatter, as the reference's)
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "grok-1-314b"]
+
+
+def _moe_pair(name, dtype, device):
+    import copy
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.moe import init_moe_lm
+    cfg = dataclasses.replace(get_arch(name).reduced_cfg, param_dtype=dtype)
+    cpu = init_moe_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_apply_on_the_card_equals_the_cpu(cuda_device, name, dtype):
+    """``moe_apply`` on 256 tokens, card against CPU: f32 routing and
+    ``keep`` equal, outputs to 1e-5, the aux loss rtol 1e-6; bf16
+    outputs to two bf16 steps plus 2e-2 (the combine's bf16 scatter-add
+    rounds in arrival order on the card)."""
+    from repro_torch.models.moe import moe_apply
+    cfg, cpu, card = _moe_pair(name, dtype, cuda_device)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (256, cfg.d_model)).astype(np.float32)).to(cfg.dtype)
+    rc, rg = [], []
+    with torch.inference_mode():
+        yc, ac = moe_apply(cpu.blocks[0].moe, x, cfg, rc)
+        yg, ag = moe_apply(card.blocks[0].moe, x.to(cuda_device), cfg, rg)
+    torch.cuda.synchronize()
+    f32 = dtype == "float32"
+    if f32:
+        assert torch.equal(rg[0]["expert_idx"].cpu(), rc[0]["expert_idx"])
+        assert torch.equal(rg[0]["keep"].cpu(), rc[0]["keep"])
+    torch.testing.assert_close(yg.float().cpu(), yc.float(),
+                               **(dict(rtol=0.0, atol=1e-5) if f32
+                                  else dict(rtol=2**-6, atol=2e-2)))
+    np.testing.assert_allclose(float(ag), float(ac), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_prefill_launches_k4_once_per_layer(cuda_device, name, dtype):
+    """The reduced MoE's prefill on the card: one K4 launch per layer;
+    its logits against prefill with ``blocked_attention`` on the card
+    and against the CPU's (f32 1e-4; bf16 2e-2)."""
+    from repro_torch.models.moe import moe_prefill
+    cfg, cpu, card = _moe_pair(name, dtype, cuda_device)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 48))
+    launches = flash_attention.launches
+    got, _ = moe_prefill(cfg, card, toks, device=cuda_device)
+    assert flash_attention.launches == launches + cfg.n_layers
+    plain, _ = moe_prefill(cfg, card, toks, impl="plain",
+                           device=cuda_device)
+    want, _ = moe_prefill(cfg, cpu, toks, device="cpu")
+    assert flash_attention.launches == launches + cfg.n_layers
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" \
+        else dict(rtol=0.0, atol=2e-2)
+    torch.testing.assert_close(got, plain, **tol)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+@pytest.mark.cuda
+def test_lm_demo_serves_a_moe_on_the_card(cuda_device, capsys):
+    from repro_torch.launch import lm_demo
+    rec = lm_demo.main(["--arch", "grok-1-314b", "--width", "reduced",
+                        "--batch", "2", "--prompt-len", "48", "--gen", "4"])
+    assert rec["k4_launches"] == 2 and rec["peak_bytes"] > 0
+    assert 0.0 <= rec["dropped_share"] < 1.0
+    assert torch.isfinite(rec["last_logits"]).all()
+    assert "dropped at capacity" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+@pytest.mark.parametrize("config", ["SG0", "SG1", "SGR", "SD0", "SD1",
+                                    "SDR"])
+def test_gnn_aggregate_on_the_card_equals_the_cpu(cuda_device, config,
+                                                  kind):
+    """``aggregate`` under the six configs on 20,000 edges into 3,000
+    nodes (some empty), D = 8: min and max bit-equal to the CPU's
+    (+-inf in the empty segments), sums to 1e-5 (atomics)."""
+    from repro_torch.core.config_space import SystemConfig as S
+    from repro_torch.models.gnn import aggregate
+    rng = np.random.default_rng(3)
+    dst = torch.from_numpy(rng.integers(0, 2900, 20000).astype(np.int32))
+    v = torch.from_numpy(rng.standard_normal((20000, 8)).astype(np.float32))
+    want = aggregate(v, dst, 3000, kind, S.from_name(config))
+    got = aggregate(v.to(cuda_device), dst.to(cuda_device), 3000, kind,
+                    S.from_name(config)).cpu()
+    if kind == "sum":
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+        assert torch.isinf(got[2900:]).all()
+
+
+def _gnn_case(name):
+    from repro_torch.configs.registry import get_arch
+    arch = get_arch(name)
+    cfg = arch.reduced_cfg
+    rng = np.random.default_rng(0)
+    n, e = 64, 256
+    b = {"src": rng.integers(0, n, e).astype(np.int32),
+         "dst": rng.integers(0, n - 6, e).astype(np.int32)}
+    if name in ("schnet", "equiformer-v2"):
+        g = cfg.n_graphs
+        b.update(species=rng.integers(0, 10, n).astype(np.int32),
+                 positions=rng.standard_normal((n, 3)).astype(np.float32),
+                 graph_ids=(np.arange(n) % g).astype(np.int32),
+                 energy=rng.standard_normal(g).astype(np.float32))
+    elif name == "meshgraphnet":
+        b.update(node_feat=rng.standard_normal((n, cfg.d_node_in))
+                 .astype(np.float32),
+                 edge_feat=rng.standard_normal((e, cfg.d_edge_in))
+                 .astype(np.float32),
+                 target=rng.standard_normal((n, cfg.d_out))
+                 .astype(np.float32))
+    else:
+        deg = np.bincount(b["dst"], minlength=n)
+        b.update(node_feat=rng.standard_normal((n, cfg.d_in))
+                 .astype(np.float32), in_degree=deg.astype(np.int32),
+                 labels=rng.integers(0, cfg.n_classes, n).astype(np.int32))
+    params = arch.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return arch, cfg, params, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pna", "meshgraphnet", "schnet",
+                                  "equiformer-v2"])
+def test_gnn_train_step_on_the_card_equals_the_cpu(cuda_device, name):
+    """One AdamW step (lr 1e-3) of each reduced GNN on the card against
+    the CPU from the same parameters: loss and grad norm rtol 1e-4
+    (EquiformerV2's bf16 edge tensors: 1e-2), parameters atol 1e-4
+    (EquiformerV2 4e-3, ``chip_smoke.py``'s bf16 ``TRAIN_TOL``: AdamW
+    moves a leaf whose gradient is near 0 by up to lr = 1e-3, so a
+    rounding difference of such a gradient moves it by that much; seen
+    1.7e-3 after 3 steps), the parameters' movement within 1e-2 of its
+    norm (EquiformerV2 0.1), and every leaf the CPU moved moved on the
+    card (the last
+    block's gate of EquiformerV2 gets no gradient: only the invariant
+    channel reaches the head)."""
+    import copy
+    from repro_torch.configs.base import loss_train_step
+    from repro_torch.optim import adamw_init
+    arch, cfg, first, b = _gnn_case(name)
+    eq = name == "equiformer-v2"
+    out = []
+    for d in (cuda_device, torch.device("cpu")):
+        params = copy.deepcopy(first).to(d)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+        step = loss_train_step(cfg, arch.loss, device=d)
+        params, _, metrics = step(params, adamw_init(params), batch)
+        out.append((params, metrics))
+    (card, mc), (cpu, mcpu) = out
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[key]), float(mcpu[key]),
+                                   rtol=1e-2 if eq else 1e-4)
+    diff2 = want2 = 0.0
+    for (n, a), (_, c), (_, s0) in zip(card.named_parameters(),
+                                       cpu.named_parameters(),
+                                       first.named_parameters()):
+        a, c = a.detach().cpu().double(), c.detach().double()
+        s0 = s0.detach().double()
+        torch.testing.assert_close(a, c, rtol=0.0,
+                                   atol=4e-3 if eq else 1e-4,
+                                   msg=lambda m, n=n: f"{n}: {m}")
+        assert bool((a - s0).any()) or not bool((c - s0).any()), n
+        diff2 += float((((a - s0) - (c - s0)) ** 2).sum())
+        want2 += float(((c - s0) ** 2).sum())
+    assert (diff2 / want2) ** 0.5 <= (0.1 if eq else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "pna",
+                                  "equiformer-v2"])
+def test_train_launcher_trains_moe_and_gnn_on_the_card(cuda_device, arch,
+                                                       capsys):
+    from repro_torch.launch import train
+    hist = train.main(["--arch", arch, "--steps", "3", "--seq", "32"])
+    assert len(hist) == 3 and all(np.isfinite(r["loss"]) for r in hist)
+    assert "done: loss" in capsys.readouterr().out

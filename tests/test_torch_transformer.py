@@ -138,9 +138,9 @@ def test_configs_are_the_reference_configs(name):
 def test_registry_names_every_reference_arch():
     from repro.configs.registry import ARCH_NAMES as J_NAMES
     assert ARCH_NAMES == J_NAMES
-    for name in ("qwen3-moe-235b-a22b", "grok-1-314b", "schnet"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_arch(name)
+    # every family is ported: no name raises
+    for name in ARCH_NAMES:
+        assert get_arch(name).family == j_get_arch(name).family
     with pytest.raises(KeyError):
         get_arch("gpt-2")
     assert get_arch("dlrm-mlperf").family == "recsys"
