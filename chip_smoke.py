@@ -320,7 +320,33 @@ script exits non-zero:
    invariance on the card (the reference's test, 5e-3), and the four
    reduced GNNs' 3 steps card against CPU at ``TRAIN_TOL`` (EquiformerV2,
    whose edge tensors are bf16, at its bf16 row).
-11. print the kernel table as one JSON line, then the last line
+11. the sharding pieces (``torch.distributed`` on the card): (a) an
+   NCCL group of one rank and ``make_local_mesh()``'s 1 x 1 mesh;
+   starcoder2-7b at full width and ``SHARD_LM_LAYERS`` layers, its
+   parameters DTensors placed by ``lm_param_sharding`` (dp ``data``, tp
+   and sp ``model``), prefilled on B=1 x 4,096 tokens under
+   ``use_mesh`` with K4 inside ``local_map`` (one launch per layer,
+   counted from 0) against the unsharded prefill of the same weights
+   (bit-equal expected; else ``LM_LOGIT_TOL``, named), and the host ms
+   the DTensor path adds per layer; (b) qwen3-moe-235b-a22b at full
+   width and 1 layer, B=4 x 1,024 with 4 dispatch groups, so that the
+   ``local_map`` routing, dispatch and combine run, against the
+   unsharded prefill at the same groups: routing and ``keep`` equal,
+   logits within ``MOE_LOGIT_TOL``; (c) one starcoder2-7b train step at
+   ``SHARD_TRAIN_LAYERS`` layers through DTensor parameters and AdamW
+   against the unsharded step at the bf16 ``TRAIN_TOL``; (d)
+   ``CompressedReducer.reduce`` over the card's gradients with an NCCL
+   all-reduce mean, wire and residual bit-equal to the same round on
+   the CPU, then ``ElasticMesh.build()`` and ``reshard``, and a DTensor
+   checkpoint saved and restored with ``shardings=``, bit-equal; (e)
+   the dry run (``python -m repro_torch.launch.dryrun``, one process per
+   cell, all started together) on ``SHARD_DRYRUN_CELLS`` with each LM's
+   depth cut to ``SHARD_DRYRUN_LAYERS`` layers: each must end ``ok``;
+   per-rank peak GB, FLOPs and collective GB beside the committed
+   uncut records of ``results/torch/dryrun``; (f) the roofline row of
+   ``benchmarks/run.py`` over those records and over the committed
+   ones, at the H100's peaks.
+12. print the kernel table as one JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The full record also goes to ``--out``.
@@ -522,6 +548,28 @@ MOLECULE = dict(atoms=30, edges=128)
 #: of bf16 activations can pick another expert for a near tie)
 MOE_BF16_TRAIN_TOL = dict(TRAIN_TOL[torch.bfloat16],
                           grad_norm=dict(rtol=1e-2, atol=0.0))
+#: Phase 11, the sharding pieces: starcoder2-7b's sharded prefill at
+#: full width and SHARD_LM_LAYERS layers on B x S tokens; qwen3-moe at
+#: full width and 1 layer on SHARD_MOE; a starcoder2-7b train step at
+#: SHARD_TRAIN_LAYERS layers on SHARD_TRAIN tokens in its microbatches
+SHARD_SEED = 0
+SHARD_LM_LAYERS = 4
+SHARD_LM = dict(batch=1, seq=4096)
+SHARD_LM_TIMED = 3
+SHARD_MOE = dict(batch=4, seq=1024, groups=4)
+SHARD_TRAIN_LAYERS = 2
+SHARD_TRAIN = dict(batch=4, seq=1024, micro=2)
+#: the dry run's cells on the card (arch, shape, mesh), each LM cut to
+#: SHARD_DRYRUN_LAYERS layers (the committed sweep runs them uncut on a
+#: host CPU: a full-depth LM train cell takes minutes to trace)
+SHARD_DRYRUN_CELLS = [("grok-1-314b", "train_4k", "single"),
+                      ("qwen3-moe-235b-a22b", "train_4k", "single"),
+                      ("starcoder2-7b", "train_4k", "single"),
+                      ("command-r-plus-104b", "prefill_32k", "single"),
+                      ("dlrm-mlperf", "train_batch", "single"),
+                      ("pna", "ogb_products", "single"),
+                      ("grok-1-314b", "train_4k", "multi")]
+SHARD_DRYRUN_LAYERS = 2
 #: DLRM serving: timed requests per cell, after one untimed warm-up each
 DLRM_REQUESTS = {"serve_p99": 8, "serve_bulk": 4, "retrieval_cand": 4}
 #: the table-batched K3's launch variants: (items per warp, threads per
@@ -2188,7 +2236,7 @@ def gnn_phase(dev) -> dict:
     log(f"gnn ogb_products: not run; PNA's first edge-MLP input alone is "
         f"[{ogb['n_edges']}, {2 * h}] f32 = "
         f"{ogb['n_edges'] * 2 * h * 4 / 1e9:.1f} GB before the backward "
-        "keeps it (waits for the sharding pieces)")
+        "keeps it (phase 11's dry run holds it on 256 ranks)")
     for name, shape in GNN_CELLS:
         rec, params = _gnn_train(dev, name, shape)
         record["cells"][f"{name}/{shape}"] = rec
@@ -2222,6 +2270,336 @@ def gnn_phase(dev) -> dict:
     record["reduced"] = _gnn_reduced(dev)
     free_device_memory()
     return record
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_copy(module, mesh, specs):
+    """A copy of ``module`` whose parameters are DTensors on ``mesh``."""
+    import copy
+    from repro_torch.configs.base import distribute_params
+    return distribute_params(copy.deepcopy(module), mesh, specs)
+
+
+def _timed_host_ms(fn, n: int) -> float:
+    """Median wall ms of ``n`` calls of ``fn``, each synchronized."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _shard_lm_prefill(dev, mesh, ax) -> tuple:
+    """(a) starcoder2-7b's prefill through DTensor parameters, K4 in
+    ``local_map``; returns (record, K4 launches of the sharded run)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import distribute_tree, lm_param_sharding
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as T
+    from repro_torch.models.mesh_compat import use_mesh
+    cfg = dc.replace(get_arch("starcoder2-7b", axes=ax).cfg,
+                     n_layers=SHARD_LM_LAYERS)
+    plain = dc.replace(cfg, dp_axes=(), tp_axis=None, sp_axis=None)
+    params = T.init_lm(plain, torch.Generator(dev).manual_seed(SHARD_SEED),
+                       dev)
+    sharded = _sharded_copy(params, mesh, lm_param_sharding(cfg, ax))
+    tokens = torch.from_numpy(lm_batch(0, SHARD_LM["batch"], SHARD_LM["seq"],
+                                       cfg.vocab)["tokens"]).to(dev)
+    dtok = distribute_tree({"t": tokens}, mesh,
+                           {"t": (ax.dp, None)})["t"]
+    want, _ = T.prefill(plain, params, tokens, device=dev)
+    flash_attention.launches = 0
+    with use_mesh(mesh):
+        got, _ = T.prefill(cfg, sharded, dtok, device=dev)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    got = got.full_tensor()
+    equal = bool(torch.equal(got, want))
+    err = float((got.float() - want.float()).abs().max())
+    log(f"shard lm: {cfg.name} {cfg.n_layers} layers, B={SHARD_LM['batch']}"
+        f" S={SHARD_LM['seq']} on a {tuple(mesh.shape)} mesh: K4 launches="
+        f"{launches} logits bit-equal={equal} max_abs_err={err}")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"shard lm: {launches} K4 launches for "
+                             f"{cfg.n_layers} layers")
+    if not equal:
+        # DTensor's dispatch picked another ATen op somewhere: hold the
+        # logits to phase 7's bound
+        _lm_check("shard prefill vs unsharded", got, want, LM_LOGIT_TOL)
+    plain_ms = _timed_host_ms(
+        lambda: T.prefill(plain, params, tokens, device=dev), SHARD_LM_TIMED)
+
+    def sharded_run():
+        with use_mesh(mesh):
+            T.prefill(cfg, sharded, dtok, device=dev)
+    shard_ms = _timed_host_ms(sharded_run, SHARD_LM_TIMED)
+    per_layer = (shard_ms - plain_ms) / cfg.n_layers
+    log(f"shard lm: prefill ms unsharded={plain_ms:.3f} sharded="
+        f"{shard_ms:.3f}: the DTensor path adds {per_layer:.3f} ms a layer")
+    rec = dict(layers=cfg.n_layers, k4_launches=launches, bit_equal=equal,
+               max_abs_err=err, plain_ms=plain_ms, sharded_ms=shard_ms,
+               dtensor_ms_per_layer=per_layer)
+    del params, sharded, got, want
+    free_device_memory()
+    return rec, launches
+
+
+def _shard_moe(dev, mesh, ax) -> dict:
+    """(b) qwen3-moe's prefill with its groups in ``local_map``."""
+    import dataclasses as dc
+    from repro_torch.configs.base import distribute_tree, lm_param_sharding
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import moe as M
+    from repro_torch.models.mesh_compat import use_mesh
+    arch = get_arch("qwen3-moe-235b-a22b", axes=ax)
+    cfg = dc.replace(arch.cfg, n_layers=1,
+                     dispatch_groups=SHARD_MOE["groups"])
+    plain = dc.replace(cfg, dp_axes=(), tp_axis=None, sp_axis=None)
+    params = M.init_moe_lm(plain,
+                           torch.Generator(dev).manual_seed(SHARD_SEED), dev)
+    sharded = _sharded_copy(params, mesh,
+                            lm_param_sharding(cfg, ax, cfg.moe_mode))
+    tokens = torch.from_numpy(lm_batch(1, SHARD_MOE["batch"],
+                                       SHARD_MOE["seq"],
+                                       cfg.vocab)["tokens"]).to(dev)
+    dtok = distribute_tree({"t": tokens}, mesh, {"t": (ax.dp, None)})["t"]
+    want_r, got_r = [], []
+    want, _ = M.moe_prefill(plain, params, tokens, device=dev,
+                            routing=want_r)
+    flash_attention.launches = 0
+    with use_mesh(mesh):
+        got, _ = M.moe_prefill(cfg, sharded, dtok, device=dev,
+                               routing=got_r)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    same = all(torch.equal(g[k].full_tensor(), w[k])
+               for g, w in zip(got_r, want_r) for k in ("expert_idx", "keep"))
+    kept = float(want_r[0]["keep"].float().mean())
+    err = _logits_close("shard prefill vs unsharded", got.full_tensor(),
+                        want, MOE_LOGIT_TOL, argmax=False)
+    log(f"shard moe: {cfg.name} 1 layer, B={SHARD_MOE['batch']} S="
+        f"{SHARD_MOE['seq']}, {cfg.dispatch_groups} groups in local_map: "
+        f"routing and keep equal={same} (kept {kept:.4f}), K4 launches="
+        f"{launches}")
+    if not same or launches != 1:
+        raise AssertionError(f"shard moe: routing equal {same}, {launches} "
+                             "K4 launches")
+    del params, sharded
+    free_device_memory()
+    return dict(groups=cfg.dispatch_groups, routing_equal=same,
+                kept_share=kept, max_abs_err=err, k4_launches=launches)
+
+
+def _shard_train(dev, mesh, ax) -> tuple:
+    """(c) one starcoder2-7b train step through DTensor parameters;
+    returns (record, the unsharded step's gradients' model)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import (distribute_tree, lm_param_sharding,
+                                          lm_train_step)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.mesh_compat import use_mesh
+    from repro_torch.optim import adamw_init
+    cfg = dc.replace(get_arch("starcoder2-7b", axes=ax).cfg,
+                     n_layers=SHARD_TRAIN_LAYERS)
+    plain = dc.replace(cfg, dp_axes=(), tp_axis=None, sp_axis=None)
+    b, s, mb = SHARD_TRAIN["batch"], SHARD_TRAIN["seq"], SHARD_TRAIN["micro"]
+    params = T.init_lm(plain, torch.Generator(dev).manual_seed(SHARD_SEED),
+                       dev)
+    sharded = _sharded_copy(params, mesh, lm_param_sharding(cfg, ax))
+    start = {n: p.detach().float().clone()
+             for n, p in params.named_parameters()}
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(0, b, s, cfg.vocab).items()}
+    dbatch = distribute_tree(batch, mesh, {"tokens": (ax.dp, None),
+                                           "labels": (ax.dp, None)})
+    _, _, want = lm_train_step(plain, b, s, mb, device=dev)(
+        params, adamw_init(params), batch)
+    with use_mesh(mesh):
+        _, _, got = lm_train_step(cfg, b, s, mb, device=dev)(
+            sharded, adamw_init(sharded), dbatch)
+    torch.cuda.synchronize()
+    tol = TRAIN_TOL[cfg.dtype]
+    worst = 0.0
+    for (n, a), (_, w) in zip(sharded.named_parameters(),
+                              params.named_parameters()):
+        a, w = a.detach().full_tensor().float(), w.detach()
+        worst = max(worst, float((a - w.float()).abs().max()))
+        torch.testing.assert_close(a, w.float(), **tol["params"],
+                                   msg=lambda m, n=n: f"shard train {n}: {m}")
+    moved = max(float((w.float() - start[n]).abs().max())
+                for n, w in params.named_parameters())
+    loss = [float(got["loss"]), float(want["loss"])]
+    gn = [float(got["grad_norm"]), float(want["grad_norm"])]
+    log(f"shard train: {cfg.name} {cfg.n_layers} layers, B={b} as {mb} "
+        f"microbatches, S={s}: loss sharded/unsharded={loss} grad_norm="
+        f"{gn} max param diff={worst} (largest move {moved})")
+    torch.testing.assert_close(*map(torch.tensor, loss), **tol["loss"])
+    torch.testing.assert_close(*map(torch.tensor, gn), **tol["grad_norm"])
+    del sharded
+    free_device_memory()
+    return dict(layers=cfg.n_layers, loss=loss, grad_norm=gn,
+                max_param_diff=worst, largest_move=moved), (plain, params,
+                                                             batch)
+
+
+def _shard_pieces(dev, mesh, ax, lm) -> dict:
+    """(d) ``CompressedReducer`` over NCCL, ``ElasticMesh``, and a DTensor
+    checkpoint restored with ``shardings=``."""
+    from repro_torch.configs.base import (lm_param_sharding, trainable,
+                                          value_and_grad)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.compression import (CompressedReducer,
+                                               all_reduce_mean)
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.fault_tolerance import ElasticMesh
+    cfg, params, batch = lm
+    leaves = trainable(params)
+    _, grads = value_and_grad(
+        lambda: T.train_forward(cfg, params, batch, device=dev), leaves)
+    for p in leaves.values():
+        p.requires_grad_(False)
+    cr = CompressedReducer(torch.bfloat16)
+    state = cr.init_state(grads)
+    for _ in range(2):   # two rounds: the second adds the residual back
+        card_out, state_next = cr.reduce(grads, state, all_reduce_mean())
+        cpu_out, cpu_state = cr.reduce(
+            {k: g.cpu() for k, g in grads.items()},
+            {k: r.cpu() for k, r in state.items()},
+            lambda w: {k: v / 1 for k, v in w.items()})
+        for k in grads:
+            if not (torch.equal(card_out[k].cpu(), cpu_out[k])
+                    and torch.equal(state_next[k].cpu(), cpu_state[k])):
+                raise AssertionError(f"shard compression: {k} differs from "
+                                     "the CPU's round")
+        state = state_next
+    nbytes = sum(g.numel() for g in grads.values())
+    log(f"shard compression: 2 rounds over {len(grads)} gradients "
+        f"({nbytes} values) with an NCCL all-reduce mean: wire and "
+        f"residual bit-equal to the CPU's")
+    em = ElasticMesh(model_parallel=1)
+    mesh2 = em.build()
+    specs = lm_param_sharding(cfg, ax)
+    placed = em.reshard(params, mesh2, specs)
+    ckpt = ROOT / "build" / "shard_checkpoint"
+    if ckpt.exists():
+        import shutil
+        shutil.rmtree(ckpt)
+    save_checkpoint(ckpt, 1, placed)
+    fresh = T.init_lm(cfg.__class__(**{**dataclasses.asdict(cfg)}),
+                      torch.Generator(dev).manual_seed(SHARD_SEED + 1), dev)
+    restored, step, _ = restore_checkpoint(ckpt, fresh,
+                                           shardings=(mesh2, specs))
+    same = all(torch.equal(a.full_tensor(), b.full_tensor())
+               for (_, a), (_, b) in zip(restored.named_parameters(),
+                                         placed.named_parameters()))
+    log(f"shard checkpoint: ElasticMesh {tuple(mesh2.shape)}, "
+        f"{len(specs)} DTensor leaves saved whole and restored onto the "
+        f"mesh with shardings=: bit-equal={same}")
+    if not same or step != 1:
+        raise AssertionError("shard checkpoint: the restore differs")
+    return dict(compression_rounds=2, compressed_values=nbytes,
+                elastic_mesh=list(mesh2.shape), checkpoint_bit_equal=same)
+
+
+def _shard_dryrun(log_dir: Path) -> tuple:
+    """(e) the dry run's cells, one process each, all started together;
+    returns (records, wall seconds)."""
+    out = log_dir / "dryrun_card"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, mesh in SHARD_DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out)]
+        if arch not in ("dlrm-mlperf", "pna"):
+            cmd += ["--layers", str(SHARD_DRYRUN_LAYERS)]
+        procs.append(subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=open(out / f"{arch}__{shape}__{mesh}.log", "w")))
+    for p in procs:
+        p.wait()
+    wall = time.perf_counter() - t0
+    records = []
+    for arch, shape, mesh in SHARD_DRYRUN_CELLS:
+        name = f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads((out / name).read_text())
+        if not rec.get("ok"):
+            raise AssertionError(f"shard dryrun {name}: {rec.get('error')}")
+        full = ROOT / "results" / "torch" / "dryrun" / name
+        uncut = json.loads(full.read_text()) if full.exists() else {}
+        coll = sum(v["bytes"] for v in rec["collectives"].values())
+        log(f"shard dryrun {arch} {shape} {rec['mesh']} layers="
+            f"{rec['layers']}: peak={rec['memory']['peak_bytes'] / 1e9:.3f} "
+            f"GB/rank flops={rec['cost']['flops']:.4e}/rank collectives="
+            f"{coll / 1e9:.3f} GB/rank step={rec['step_s']} s; uncut "
+            f"(committed): peak={uncut.get('memory', {}).get('peak_bytes', 0) / 1e9:.3f}"
+            f" GB/rank")
+        records.append(dict(arch=arch, shape=shape, mesh=rec["mesh"],
+                            layers=rec["layers"],
+                            peak_bytes=rec["memory"]["peak_bytes"],
+                            flops=rec["cost"]["flops"],
+                            collective_bytes=coll, step_s=rec["step_s"]))
+    log(f"shard dryrun: {len(records)} cells in {wall:.1f} s (one process "
+        "each, all at once)")
+    return records, wall, out
+
+
+def _roofline_row(dryrun_dir, out) -> str:
+    from repro_torch.benchmarks.roofline import analyze
+    rows = analyze(dryrun_dir=dryrun_dir, out=out, mesh=None)
+    worst = min(rows, key=lambda r: r["roofline_fraction"] or 1)
+    return (f"roofline,{len(rows)},cells={len(rows)};worst_fraction="
+            f"{worst['roofline_fraction']}@{worst['arch']}/{worst['shape']}")
+
+
+def sharding_phase(dev, log_dir: Path) -> tuple:
+    """Phase 11: the sharding pieces.  Returns (record, K4 launches of
+    the sharded prefill)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import axes_for_mesh
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_local_mesh()
+        ax = axes_for_mesh(mesh)
+        log(f"shard: NCCL group of {dist.get_world_size()} rank, mesh "
+            f"{mesh.mesh_dim_names} {tuple(mesh.shape)}, axes {ax}")
+        record = {}
+        record["prefill"], launches = _shard_lm_prefill(dev, mesh, ax)
+        record["moe"] = _shard_moe(dev, mesh, ax)
+        record["train"], lm = _shard_train(dev, mesh, ax)
+        record["pieces"] = _shard_pieces(dev, mesh, ax, lm)
+        del lm
+        free_device_memory()
+    finally:
+        dist.destroy_process_group()
+    record["dryrun"], record["dryrun_seconds"], out = _shard_dryrun(log_dir)
+    rows = {"card": _roofline_row(out, out / "roofline.json"),
+            "committed": _roofline_row(ROOT / "results" / "torch" / "dryrun",
+                                       out / "roofline_committed.json")}
+    for k, row in rows.items():
+        log(f"shard roofline ({k} records): {row}")
+    record["roofline"] = rows
+    return record, launches
 
 
 def free_device_memory() -> None:
@@ -4110,16 +4488,22 @@ def main() -> int:
     # 10. the GNNs train through aggregate's coherence x consistency
     gnn = gnn_phase(dev)
     clock.lap("10 gnn")
+    free_device_memory()
+
+    # 11. the sharding pieces: meshes, DTensor execution, the dry run
+    sharding, shard_launches = sharding_phase(dev, out.parent)
+    clock.lap("11 sharding")
     for row in rows:
         row["launches"] = launches[row["kernel"]]
         if row["kernel"] == "flash_attention":
             row["attention_launches"] = attn_launches
             row["command_r_launches"] = cr_launches
             row["moe_launches"] = moe_launches
+            row["sharding_launches"] = shard_launches
             if "arch" in row:  # the MoE prefill shapes: that path's count
                 row["launches"] = moe_launches[row["arch"]]
             if attn_launches <= 0 or cr_launches <= 0 or \
-                    min(moe_launches.values()) <= 0:
+                    min(moe_launches.values()) <= 0 or shard_launches <= 0:
                 raise AssertionError(f"{row['name']}: no launch on a path")
         if row["kernel"] in device_launches:
             row["device_launches"] = device_launches[row["kernel"]]
@@ -4159,8 +4543,9 @@ def main() -> int:
                                    harness_launches=harness_launches,
                                    dlrm=dlrm, attention=attn, lm=lm,
                                    train=train, moe=moe, gnn=gnn,
+                                   sharding=sharding,
                                    phase_seconds=clock.seconds), indent=1))
-    # 11. the kernel table, then the last line
+    # 12. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))
     log(last)
     return 0

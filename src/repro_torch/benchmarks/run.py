@@ -10,10 +10,10 @@ flag it runs the paper's own artifacts in order: Table II
 benchmark alone; each ``--<name>-only`` flag runs one harness (autotune,
 batch, serve, resilience, chaos, matrix, specialize).
 
-Left out: the reference's ``roofline`` section.  ``benchmarks/
-roofline.py`` reads the LM dry-run's artifacts and hard-codes TPU peaks,
-so it belongs with the model zoo's sharding pieces, which the port does
-not have yet; no row is printed for it.  The port's batch and
+The last row is the reference's ``roofline``: the dry run's records
+(``results/torch/dryrun``) through :mod:`repro_torch.benchmarks.
+roofline` at the H100's peaks, single-pod cells, written to
+``<out-dir>/roofline.json``.  The port's batch and
 resilience harnesses have no smoke workload, so the reference's
 ``--batch-smoke`` and ``--resilience-smoke`` are not flags here.
 
@@ -179,6 +179,21 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     print(f"fig6_flexibility,{dt*1e6:.0f},cases={f6['n_cases']};"
           f"avg_reduction={f6['avg_reduction_pct']}%", flush=True)
+
+    # roofline (reads the dry run's records; a row either way)
+    try:
+        from repro_torch.benchmarks.roofline import DRYRUN_DIR, analyze
+        rows = analyze(dryrun_dir=DRYRUN_DIR, out=out_dir / "roofline.json",
+                       mesh="single")
+        if rows:
+            worst = min(rows, key=lambda r: r["roofline_fraction"] or 1)
+            print(f"roofline,{len(rows)},cells={len(rows)};"
+                  f"worst_fraction={worst['roofline_fraction']}"
+                  f"@{worst['arch']}/{worst['shape']}", flush=True)
+        else:
+            print("roofline,0,no_dryrun_artifacts", flush=True)
+    except Exception as exc:  # pragma: no cover
+        print(f"roofline,0,error={exc}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """command-r-35b [hf:CohereForAI/c4ai-command-r-v01]: 40L d=8192 64H
 (GQA kv=8) d_ff=22528 vocab=256000 — parallel block, no bias.
 Counterpart of ``repro.configs.command_r_35b`` (``CFG`` and ``REDUCED``;
-the dry-run's cells come with the sharding pieces)."""
+its dry-run cells are ``configs.base.make_lm_arch``'s)."""
 import dataclasses
 
 from repro_torch.models.transformer import LMConfig

@@ -20,6 +20,7 @@ from repro_torch.data.synthetic import dlrm_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.dlrm import (DLRM, DLRMConfig, dlrm_forward,
                                      retrieval_score)
+from repro_torch.models.mesh_compat import serving
 
 __all__ = ["CFG", "REDUCED", "SERVE_CELLS", "TRAIN_CELLS",
            "RETRIEVAL_CANDIDATES", "capped", "serving_batch",
@@ -80,12 +81,11 @@ def training_batch(cfg: DLRMConfig, step: int, *, batch: int,
 def serve_step(cfg: DLRMConfig, params: DLRM, batch, *, impl="kernel",
                device=None) -> torch.Tensor:
     """serve_p99 / serve_bulk: the logits of one request."""
-    with torch.inference_mode():
-        return dlrm_forward(cfg, params, batch, impl=impl, device=device)
+    return serving(dlrm_forward)(cfg, params, batch, impl=impl,
+                                 device=device)
 
 
 def retrieval_step(cfg: DLRMConfig, params: DLRM, batch,
                    device=None) -> torch.Tensor:
     """retrieval_cand: the candidates' scores for one query."""
-    with torch.inference_mode():
-        return retrieval_score(cfg, params, batch, device=device)
+    return serving(retrieval_score)(cfg, params, batch, device=device)

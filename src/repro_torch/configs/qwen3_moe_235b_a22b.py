@@ -1,8 +1,7 @@
 """qwen3-moe-235b-a22b [hf:Qwen/Qwen3-235B-A22B]: 94L d=4096 64H (GQA kv=4)
 expert d_ff=1536 vocab=151936, 128 experts top-8.  Counterpart of
-``repro.configs.qwen3_moe_235b_a22b`` (``CFG`` and ``REDUCED``; the
-dry-run's cells and the expert sharding come with the sharding
-pieces)."""
+``repro.configs.qwen3_moe_235b_a22b`` (``CFG``, ``REDUCED`` and the
+expert-parallel ``MOE_MODE``)."""
 import dataclasses
 
 from repro_torch.models.moe import MoEConfig
@@ -17,3 +16,6 @@ CFG = MoEConfig(
 REDUCED = dataclasses.replace(
     CFG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
     d_ff=96, vocab=512, n_experts=8, top_k=2)
+
+#: the experts' sharding (``make_lm_arch``'s ``moe_mode``): 'ep' shards the expert axis over the model axis
+MOE_MODE = "ep"

@@ -4,17 +4,24 @@ initialiser and its training loss.  A GNN's full config depends on the
 input shape: ``Arch.cfg`` is the reference's ``cfg0`` (the molecule
 shape for SchNet and EquiformerV2, ``full_graph_sm`` for the others),
 and ``Arch.cfg_for(shape)`` gives any of ``GNN_SHAPES``' configs, as
-``make_gnn_arch``'s cells do.
+``make_gnn_arch``'s cells do.  Each arch also carries the dry run's
+``abstract_params``, ``param_sharding`` and ``cells``
+(``configs.base.make_{lm,gnn,dlrm}_arch``).  ``get_arch(name, axes)``
+binds a mesh's axes into an LM's config as the reference's does
+(``dp_axes``, ``tp_axis``, ``sp_axis``; an MoE's ``moe_mode`` and
+``dispatch_groups = axes.dp_size``); without axes the configs are the
+unsharded ones.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import importlib
 from functools import lru_cache
-from typing import Any, Callable, Optional
 
-__all__ = ["ARCH_NAMES", "Arch", "get_arch"]
+from repro_torch.configs.base import (Arch, Axes, make_dlrm_arch,
+                                      make_gnn_arch, make_lm_arch)
+
+__all__ = ["ARCH_NAMES", "Arch", "get_arch", "with_layers"]
 
 #: name -> (family, the port's config module)
 _MODULES = {
@@ -34,43 +41,29 @@ _MODULES = {
 ARCH_NAMES = tuple(_MODULES)
 
 
-@dataclasses.dataclass(frozen=True)
-class Arch:
-    name: str
-    family: str       # lm | moe | gnn | recsys, as the reference's
-    cfg: Any
-    reduced_cfg: Any
-    #: (cfg, generator, device=None) -> parameters
-    init_params: Callable[..., Any]
-    #: (cfg, params, batch, device=None) -> the training loss (f32
-    #: scalar): ``train_forward``, ``moe_train_forward``, a GNN's loss,
-    #: or ``dlrm_loss`` through the plain embedding bag
-    loss: Callable[..., Any]
-    #: GNNs: shape name of ``GNN_SHAPES`` -> that shape's config
-    cfg_for: Optional[Callable[[str], Any]] = None
+def with_layers(name: str, n_layers: int, axes: Axes = None) -> Arch:
+    """An LM's arch with its depth cut to ``n_layers`` (every width
+    kept), as ``get_arch`` would build it."""
+    family, module = _MODULES[name]
+    if family not in ("lm", "moe"):
+        raise ValueError(f"{name}: only an LM's depth can be cut")
+    mod = importlib.import_module(module)
+    return make_lm_arch(name, dataclasses.replace(mod.CFG, n_layers=n_layers),
+                        mod.REDUCED, moe_mode=getattr(mod, "MOE_MODE", None),
+                        axes=axes)
 
 
 @lru_cache(maxsize=None)
-def get_arch(name: str) -> Arch:
+def get_arch(name: str, axes: Axes = None) -> Arch:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; one of {ARCH_NAMES}")
     family, module = _MODULES[name]
     mod = importlib.import_module(module)
     if family == "recsys":
-        from repro_torch.models.dlrm import dlrm_loss, init_dlrm
-        return Arch(name, family, mod.CFG, mod.REDUCED, init_dlrm,
-                    functools.partial(dlrm_loss, impl="plain"))
-    if family == "lm":
-        from repro_torch.models.transformer import init_lm, train_forward
-        return Arch(name, family, mod.CFG, mod.REDUCED, init_lm,
-                    train_forward)
-    if family == "moe":
-        from repro_torch.models.moe import init_moe_lm, moe_train_forward
-        return Arch(name, family, mod.CFG, mod.REDUCED, init_moe_lm,
-                    moe_train_forward)
-    from repro_torch.configs.base import GNN_SHAPES
-    first = "molecule" if mod.KIND in ("schnet", "equiformer") \
-        else "full_graph_sm"
-    return Arch(name, family, mod.builder(GNN_SHAPES[first]), mod.REDUCED,
-                mod.INIT, mod.LOSS,
-                cfg_for=lambda shape: mod.builder(GNN_SHAPES[shape]))
+        return make_dlrm_arch(name, mod.CFG, mod.REDUCED)
+    if family in ("lm", "moe"):
+        return make_lm_arch(name, mod.CFG, mod.REDUCED,
+                            moe_mode=getattr(mod, "MOE_MODE", None),
+                            axes=axes)
+    return make_gnn_arch(name, mod.KIND, mod.builder, mod.INIT, mod.LOSS,
+                         mod.REDUCED)

@@ -1,7 +1,7 @@
 """starcoder2-7b [arXiv:2402.19173]: 32L d=4608 36H (GQA kv=4) d_ff=18432
 vocab=49152 — GELU, learned bias, RoPE, 4k sliding-window attention.
 Counterpart of ``repro.configs.starcoder2_7b`` (``CFG`` and ``REDUCED``;
-the dry-run's cells come with the sharding pieces)."""
+its dry-run cells are ``configs.base.make_lm_arch``'s)."""
 import dataclasses
 
 from repro_torch.models.transformer import LMConfig

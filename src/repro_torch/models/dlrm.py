@@ -42,6 +42,8 @@ from repro_torch.kernels.embedding_bag.ops import embedding_bags
 from repro_torch.models.gnn.common import (MLPStack, init_mlp_stack,
                                            mlp_stack)
 from repro_torch.models.layers import Dense
+from repro_torch.models.mesh_compat import (as_tensor_on, is_dtensor,
+                                            replicate_as)
 
 __all__ = ["DLRMConfig", "CRITEO_1TB_VOCABS", "DLRM", "init_dlrm",
            "dlrm_params_from_jax", "dlrm_forward", "dlrm_loss",
@@ -160,7 +162,7 @@ def _on(params: DLRM, batch: Mapping, device) -> dict:
     if params.device != device:
         raise ValueError(f"DLRM parameters are on {params.device}, the "
                          f"call asks for {device}")
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    return {k: as_tensor_on(v, device) for k, v in batch.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,8 +181,21 @@ def _interact_z(z: torch.Tensor) -> torch.Tensor:
     F + 1 vectors (row-major, as ``jnp.triu_indices``)."""
     b, n, _ = z.shape
     gram = torch.bmm(z, z.transpose(1, 2)).float().view(b, n * n)
-    pairs = gram.index_select(1, _pair_index(n, z.device))
+    pairs = gram.index_select(1, replicate_as(_pair_index(n, z.device), z))
     return torch.cat([z[:, 0], pairs.to(z.dtype)], dim=-1)
+
+
+def _sharded_interact(z: torch.Tensor) -> torch.Tensor:
+    """:func:`_interact_z` of a DTensor z, each rank on its own samples
+    in ``local_map`` (the pair gather's backward, an ``index_add``, has
+    no DTensor sharding rule in every PyTorch release)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = z.device_mesh
+    pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0
+               else Replicate() for p in z.placements)
+    return local_map(_interact_z, out_placements=list(pl),
+                     in_placements=(pl,))(z.redistribute(mesh, pl))
 
 
 def _interact(bottom: torch.Tensor, embs: torch.Tensor) -> torch.Tensor:
@@ -200,6 +215,10 @@ def dlrm_forward(cfg: DLRMConfig, params: DLRM, batch: Mapping,
     batch = _on(params, batch, device)
     bottom = mlp_stack(params.bot, batch["dense"], final_act=True)
     sparse = batch["sparse"]
+    if is_dtensor(bottom):      # DTensors are concatenated, not written
+        embs = embedding_bags(params.tables, sparse, mode="sum", impl=impl)
+        x = _sharded_interact(torch.cat([bottom[:, None, :], embs], dim=1))
+        return mlp_stack(params.top, x)[:, 0]
     z = torch.empty((bottom.shape[0], cfg.n_sparse + 1, bottom.shape[1]),
                     dtype=bottom.dtype, device=bottom.device)
     z[:, 0] = bottom

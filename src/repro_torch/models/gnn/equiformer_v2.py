@@ -19,6 +19,8 @@ state is float32.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from types import SimpleNamespace
 from typing import Mapping
 
 import torch
@@ -27,8 +29,12 @@ from torch import nn
 from repro_torch.core.config_space import SystemConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import sh
+from repro_torch.models.mesh_compat import (as_tensor_on, is_dtensor,
+                                            replicate_as)
 from repro_torch.models.gnn.common import (DEFAULT_GNN_CONFIG, MLPStack,
-                                           _tensor, aggregate, graph_inputs,
+                                           _tensor, aggregate, constrain_flat,
+                                           gather_rows, rowwise,
+                                           graph_inputs,
                                            init_mlp_stack, layer_of,
                                            mlp_stack, mlp_stack_from_jax,
                                            segment_softmax)
@@ -201,8 +207,21 @@ def _rotate_out(blocks, z: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs, dim=1)
 
 
+def _message(cfg: EquiformerV2Config, rots, xs: torch.Tensor, so2: Mapping,
+             radial: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The eSCN message of each edge: rotate -> SO(2) conv -> attention
+    weights -> rotate back (row-wise over the edges)."""
+    c = cfg.d_hidden
+    z = _rotate_in(rots, xs)                                   # [E, nk, C]
+    z = _so2_conv(cfg, SimpleNamespace(**so2), z, radial)
+    aw = torch.repeat_interleave(alpha, c // cfg.n_heads, dim=-1)
+    z = z * aw[:, None, :].to(z.dtype)
+    return _rotate_out(rots, z)
+
+
 def _rbf(cfg: EquiformerV2Config, dist: torch.Tensor) -> torch.Tensor:
-    centers = torch.linspace(0.0, cfg.cutoff, cfg.n_rbf, device=dist.device)
+    centers = replicate_as(torch.linspace(0.0, cfg.cutoff, cfg.n_rbf,
+                                          device=dist.device), dist)
     width = cfg.cutoff / cfg.n_rbf
     return torch.exp(-((dist[:, None] - centers[None, :]) / width) ** 2)
 
@@ -215,31 +234,38 @@ def equiformer_forward(cfg: EquiformerV2Config, params: EquiformerV2,
     n = inputs["species"].shape[0]
     src, dst = inputs["src"].long(), inputs["dst"].long()
     pos = inputs["positions"]
-    vec = pos[src] - pos[dst]
+    vec = gather_rows(pos, src) - gather_rows(pos, dst)
     dist = torch.linalg.norm(vec + 1e-9, dim=-1)
-    unit = vec / torch.maximum(dist, dist.new_tensor(1e-9))[:, None]
+    unit = vec / torch.maximum(dist, replicate_as(dist.new_tensor(1e-9),
+                                                  dist))[:, None]
     rbf = _rbf(cfg, dist)
-    rots = sh.wigner_blocks(sh.align_z_rotation(unit), cfg.l_max,
-                            m_max=cfg.m_max)
+    rots = rowwise(lambda u: sh.wigner_blocks(sh.align_z_rotation(u),
+                                              cfg.l_max, m_max=cfg.m_max),
+                   unit, n_out=cfg.l_max + 1)
 
     k, c = cfg.n_coeff, cfg.d_hidden
-    x = torch.zeros((n, k, c), dtype=torch.float32, device=pos.device)
-    x[:, 0, :] = params.embed[inputs["species"].long()]
+    emb = params.embed[inputs["species"].long()]
+    if is_dtensor(emb):       # DTensors are concatenated, not written
+        x0 = emb[:, None, :].float()
+        x = torch.cat([x0, torch.zeros_like(x0).expand(n, k - 1, c)], dim=1)
+    else:
+        x = torch.zeros((n, k, c), dtype=torch.float32, device=pos.device)
+        x[:, 0, :] = emb
     for bp in params.blocks:
+        x = constrain_flat(x)                  # equiformer_v2.py:200-203
         # invariant multi-head attention over incoming edges (pull)
         inv = x[:, 0, :]
-        feat = torch.cat([inv[src], inv[dst], rbf], dim=-1)
+        feat = torch.cat([gather_rows(inv, src), gather_rows(inv, dst), rbf],
+                         dim=-1)
         logits = mlp_stack(bp.attn, feat)                      # [E, H]
         alpha = segment_softmax(logits, dst, n, cfg.sys)       # [E, H]
         # eSCN message: rotate -> SO(2) conv -> rotate back (push), the
         # edge tensors in bf16, cast before the source gather
         radial = mlp_stack(bp.radial, rbf).to(torch.bfloat16)
         xb = x.to(torch.bfloat16)
-        z = _rotate_in(rots, xb[src])                          # [E, nk, C]
-        z = _so2_conv(cfg, bp.so2, z, radial)
-        aw = torch.repeat_interleave(alpha, c // cfg.n_heads, dim=-1)
-        z = z * aw[:, None, :].to(z.dtype)
-        msg = _rotate_out(rots, z)                             # full layout
+        msg = rowwise(functools.partial(_message, cfg), rots,
+                      gather_rows(xb, src), dict(bp.so2.named_parameters()),
+                      radial, alpha)                           # full layout
         agg = aggregate(msg, dst, n, "sum", cfg.sys).float()   # [N, K, C]
         # node update: per-l linear, then the gated nonlinearity
         upd = []
@@ -253,7 +279,7 @@ def equiformer_forward(cfg: EquiformerV2Config, params: EquiformerV2,
         gates = torch.sigmoid(mlp_stack(bp.gate, x[:, 0, :]))  # [N, C*L]
         gates = gates.reshape(n, cfg.l_max, c)
         scale = torch.cat(
-            [x.new_ones((n, 1, c))]
+            [torch.ones_like(x[:, :1, :])]
             + [gates[:, l - 1:l, :].expand(n, 2 * l + 1, c)
                for l in range(1, cfg.l_max + 1)], dim=1)
         x = x * scale
@@ -267,5 +293,5 @@ def equiformer_forward(cfg: EquiformerV2Config, params: EquiformerV2,
 def equiformer_loss(cfg: EquiformerV2Config, params: EquiformerV2, batch, *,
                     device=None) -> torch.Tensor:
     pred = equiformer_forward(cfg, params, batch, device=device)
-    energy = torch.as_tensor(batch["energy"]).to(pred.device)
+    energy = as_tensor_on(batch["energy"], pred.device)
     return torch.mean((pred - energy) ** 2)

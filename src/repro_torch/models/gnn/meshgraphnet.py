@@ -16,8 +16,10 @@ from torch import nn
 
 from repro_torch.core.config_space import SystemConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.mesh_compat import as_tensor_on
 from repro_torch.models.gnn.common import (DEFAULT_GNN_CONFIG, MLPStack,
-                                           aggregate, graph_inputs,
+                                           aggregate, gather_rows,
+                                           graph_inputs,
                                            init_mlp_stack, layer_of,
                                            mlp_stack, mlp_stack_from_jax)
 
@@ -94,7 +96,8 @@ def mgn_forward(cfg: MGNConfig, params: MGN, inputs, *,
     e = mlp_stack(params.edge_enc, inputs["edge_feat"])
     src, dst = inputs["src"].long(), inputs["dst"].long()
     for bp in params.blocks:
-        he = torch.cat([e, h[src], h[dst]], dim=-1)
+        he = torch.cat([e, gather_rows(h, src), gather_rows(h, dst)],
+                       dim=-1)
         e = e + mlp_stack(bp.edge, he)
         agg = aggregate(e, dst, n, "sum", cfg.sys)
         h = h + mlp_stack(bp.node, torch.cat([h, agg], dim=-1))
@@ -104,5 +107,5 @@ def mgn_forward(cfg: MGNConfig, params: MGN, inputs, *,
 def mgn_loss(cfg: MGNConfig, params: MGN, batch, *,
              device=None) -> torch.Tensor:
     pred = mgn_forward(cfg, params, batch, device=device)
-    target = torch.as_tensor(batch["target"]).to(pred.device)
+    target = as_tensor_on(batch["target"], pred.device)
     return torch.mean((pred - target) ** 2)

@@ -19,8 +19,10 @@ from torch import nn
 from repro_torch.core.config_space import SystemConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.mesh_compat import as_tensor_on
 from repro_torch.models.gnn.common import (DEFAULT_GNN_CONFIG, MLPStack,
-                                           aggregate, graph_inputs,
+                                           aggregate, gather_rows,
+                                           graph_inputs,
                                            init_mlp_stack, layer_of,
                                            mlp_stack, mlp_stack_from_jax)
 
@@ -97,7 +99,8 @@ def pna_forward(cfg: PNAConfig, params: PNA, inputs, *,
 
     h = mlp_stack(params.enc, inputs["node_feat"])
     for bp in params.blocks:
-        msg = mlp_stack(bp.pre, torch.cat([h[src], h[dst]], dim=-1))
+        msg = mlp_stack(bp.pre, torch.cat([gather_rows(h, src),
+                                              gather_rows(h, dst)], dim=-1))
         ssum = aggregate(msg, dst, n, "sum", cfg.sys)
         mean = ssum / deg[:, None]
         mx = aggregate(msg, dst, n, "max", cfg.sys)
@@ -117,5 +120,5 @@ def pna_forward(cfg: PNAConfig, params: PNA, inputs, *,
 def pna_loss(cfg: PNAConfig, params: PNA, batch, *,
              device=None) -> torch.Tensor:
     logits = pna_forward(cfg, params, batch, device=device)
-    return L.cross_entropy(logits, torch.as_tensor(batch["labels"])
-                           .to(logits.device))
+    return L.cross_entropy(logits, as_tensor_on(batch["labels"],
+                                                logits.device))

@@ -19,8 +19,10 @@ from torch import nn
 from repro_torch.core.config_space import SystemConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.mesh_compat import as_tensor_on, replicate_as
 from repro_torch.models.gnn.common import (DEFAULT_GNN_CONFIG, MLPStack,
-                                           _tensor, aggregate, graph_inputs,
+                                           _tensor, aggregate, gather_rows,
+                                           graph_inputs,
                                            init_mlp_stack, layer_of,
                                            mlp_stack, mlp_stack_from_jax)
 
@@ -102,7 +104,8 @@ def schnet_params_from_jax(params_np: Mapping, cfg: SchNetConfig,
 
 
 def _rbf(cfg: SchNetConfig, dist: torch.Tensor) -> torch.Tensor:
-    centers = torch.linspace(0.0, cfg.cutoff, cfg.n_rbf, device=dist.device)
+    centers = replicate_as(torch.linspace(0.0, cfg.cutoff, cfg.n_rbf,
+                                          device=dist.device), dist)
     gamma = 10.0
     return torch.exp(-gamma * (dist[:, None] - centers[None, :]) ** 2)
 
@@ -116,14 +119,15 @@ def schnet_forward(cfg: SchNetConfig, params: SchNet, inputs, *,
     src, dst = inputs["src"].long(), inputs["dst"].long()
     pos = inputs["positions"]
     x = params.embed[inputs["species"].long()]
-    d = torch.linalg.norm(pos[src] - pos[dst] + 1e-12, dim=-1)
+    d = torch.linalg.norm(gather_rows(pos, src) - gather_rows(pos, dst)
+                          + 1e-12, dim=-1)
     rbf = _rbf(cfg, d)
     env = 0.5 * (torch.cos(math.pi * torch.clamp(d / cfg.cutoff, 0, 1))
                  + 1.0)
     for bp in params.blocks:
         w = mlp_stack(bp.filter, rbf, act=shifted_softplus,
                       final_act=True) * env[:, None]
-        msg = L.dense(bp.in_, x)[src] * w
+        msg = gather_rows(L.dense(bp.in_, x), src) * w
         agg = aggregate(msg, dst, n, "sum", cfg.sys)
         v = shifted_softplus(L.dense(bp.out1, agg))
         x = x + L.dense(bp.out2, v)
@@ -135,5 +139,5 @@ def schnet_forward(cfg: SchNetConfig, params: SchNet, inputs, *,
 def schnet_loss(cfg: SchNetConfig, params: SchNet, batch, *,
                 device=None) -> torch.Tensor:
     pred = schnet_forward(cfg, params, batch, device=device)
-    energy = torch.as_tensor(batch["energy"]).to(pred.device)
+    energy = as_tensor_on(batch["energy"], pred.device)
     return torch.mean((pred - energy) ** 2)

@@ -16,6 +16,14 @@ launches K4 (``kernels/flash_attention``, with the sliding window), and
 on the CPU it runs :func:`blocked_attention`, the port of
 ``blocked_attention_xla`` and K4's plain version on this path.
 :func:`cross_entropy` is the LM loss, in f32 with an ignore label.
+
+On DTensors (sharded execution) every function runs through DTensor's
+ops, but :func:`gqa_attention`, which runs inside ``local_map`` with
+the batch sharded over the data-parallel axes and every head whole on
+each rank: K4 on the card, :func:`blocked_attention` on the CPU and in
+the dry run.  The heads are gathered because the models' head counts
+(36, 48, 64, 96 query heads; 4 or 8 KV heads) do not all divide a
+16-wide model axis.
 """
 from __future__ import annotations
 
@@ -27,10 +35,12 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.kernel import (NEG_INF,
                                                        flash_attention)
+from repro_torch.models.mesh_compat import dim_in, is_dtensor, replicate_as
 
 __all__ = ["Dense", "Norm", "MLP", "init_dense", "dense", "init_norm",
            "rms_norm", "layer_norm", "rope", "blocked_attention",
            "gqa_attention", "init_mlp", "mlp", "cross_entropy", "ACTS",
+           "fsdp_gather",
            "ATTN_IMPLS"]
 
 #: The MLP activations of ``layers.py:mlp``.
@@ -55,6 +65,22 @@ class Dense(nn.Module):
         self.b = None if b is None else _param(b)
 
 
+def fsdp_gather(w: torch.Tensor, axes) -> torch.Tensor:
+    """A DTensor weight replicated over the mesh axes ``axes`` (FSDP's
+    all-gather before use; DTensor's own choice for a product with a
+    weight sharded on its contraction dimension is to gather the
+    activations over the batch instead, and sum the partial products);
+    any other tensor as it is."""
+    if not axes or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    names = w.device_mesh.mesh_dim_names
+    pl = [Replicate() if dim_in(n, axes) else p
+          for n, p in zip(names, w.placements)]
+    return w if pl == list(w.placements) else \
+        w.redistribute(w.device_mesh, pl)
+
+
 def init_dense(d_in: int, d_out: int, use_bias: bool = False,
                dtype: torch.dtype = torch.bfloat16, *,
                generator: torch.Generator, device) -> Dense:
@@ -68,9 +94,11 @@ def init_dense(d_in: int, d_out: int, use_bias: bool = False,
     return Dense(w, b)
 
 
-def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w (+ b)``, in the type of ``x`` and the parameters."""
-    y = x @ p.w
+def dense(p: Dense, x: torch.Tensor, gather_axes=()) -> torch.Tensor:
+    """``x @ w (+ b)``, in the type of ``x`` and the parameters.  A
+    DTensor ``w`` is first gathered over the mesh axes ``gather_axes``
+    (the data-parallel axes of an FSDP-sharded weight)."""
+    y = x @ fsdp_gather(p.w, gather_axes)
     if p.b is not None:
         y = y + p.b
     return y
@@ -123,6 +151,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
                                     device=x.device) / d)
+    freqs = replicate_as(freqs, positions)
     angles = positions[..., None].float() * freqs          # [..., S, D/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
@@ -194,17 +223,44 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  impl: str = "kernel") -> torch.Tensor:
+                  impl: str = "kernel", batch_axes=()) -> torch.Tensor:
     """GQA attention, q [B,Hq,S,D], k/v [B,Hkv,S,D] (``layers.py:168-184``).
     On a CUDA tensor ``impl="kernel"`` launches K4 with the window;
     ``impl="plain"``, and every call on the CPU, runs
-    :func:`blocked_attention`.  K/V are never repeated across a group."""
+    :func:`blocked_attention`.  K/V are never repeated across a group.
+
+    DTensor inputs are redistributed to B sharded over the mesh axes in
+    ``batch_axes`` and replicated over the others (every head whole on
+    each rank), and the attention runs inside ``local_map`` on each
+    rank's batch rows."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"gqa_attention: impl must be one of {ATTN_IMPLS}, "
                          f"got {impl!r}")
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal, window, impl, batch_axes)
+    return _attention_local(q, k, v, causal=causal, window=window,
+                            impl=impl)
+
+
+def _attention_local(q, k, v, *, causal, window, impl):
     if impl == "kernel" and q.device.type != "cpu":
         return flash_attention(q, k, v, causal=causal, window=window)
     return blocked_attention(q, k, v, causal=causal, window=window)
+
+
+def _sharded_attention(q, k, v, causal, window, impl, batch_axes):
+    import functools
+
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pl = tuple(Shard(0) if dim_in(n, batch_axes) else Replicate()
+               for n in mesh.mesh_dim_names)
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    fn = local_map(functools.partial(_attention_local, causal=causal,
+                                     window=window, impl=impl),
+                   out_placements=list(pl), in_placements=(pl, pl, pl))
+    return fn(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +289,14 @@ def init_mlp(d_model: int, d_ff: int, act: str, use_bias: bool = False,
     return MLP(up, down, gate)
 
 
-def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
-    """``layers.py:203-216``; ``jax.nn.gelu`` is the tanh approximation."""
-    up = dense(p.up, x)
+def mlp(p: MLP, x: torch.Tensor, act: str, gather_axes=()) -> torch.Tensor:
+    """``layers.py:203-216``; ``jax.nn.gelu`` is the tanh approximation.
+    ``gather_axes``: as :func:`dense`'s."""
+    up = dense(p.up, x, gather_axes)
     if act == "swiglu":
-        up = F.silu(dense(p.gate, x)) * up
+        up = F.silu(dense(p.gate, x, gather_axes)) * up
     elif act == "geglu":
-        up = F.gelu(dense(p.gate, x), approximate="tanh") * up
+        up = F.gelu(dense(p.gate, x, gather_axes), approximate="tanh") * up
     elif act == "gelu":
         up = F.gelu(up, approximate="tanh")
     elif act == "relu":
@@ -248,7 +305,7 @@ def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
         up = F.silu(up)
     else:
         raise ValueError(act)
-    return dense(p.down, up)
+    return dense(p.down, up, gather_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -25,11 +25,23 @@ each block recomputed in the backward when ``cfg.remat``
 :func:`chunked_ce`, the loss over sequence chunks of the tied logits.
 The parameters are built with ``requires_grad=False``; a train step
 turns it on, and :func:`prefill` and :func:`decode_step` run under
-``torch.inference_mode``, so serving never records a graph.
+``torch.inference_mode`` (``no_grad`` for DTensor parameters), so
+serving never records a graph.
 
 Every entry point takes ``device=None``, meaning the CUDA card, and
-raises without one unless ``device="cpu"`` is passed.  The sharding
-fields of :class:`LMConfig` come with the sharding pieces.
+raises without one unless ``device="cpu"`` is passed.
+
+Sharded execution: the parameters may be DTensors (``configs.base.
+distribute_params``), the tokens too.  Every op then runs through
+DTensor, whose sharding propagation picks the collectives, and
+attention runs inside ``local_map`` (``layers.gqa_attention``).  Under
+``mesh_compat.use_mesh`` the sharding fields of :class:`LMConfig` place
+the activations as the reference's constraints do: the training carry
+at ``P(dp, sp, None)`` before each layer, the loss chunk's logits at
+``P(dp, None, tp)``; without a mesh they change nothing.
+:func:`abstract_lm_params` builds the parameters on the meta device.
+A sharded decode gathers each layer's cache over the sequence (see
+:func:`_decode_attention`).
 """
 from __future__ import annotations
 
@@ -44,10 +56,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ref import decode_ref
 from repro_torch.models import layers as L
+from repro_torch.models.mesh_compat import (constrain, dim_in, is_dtensor,
+                                            replicate_as, serving,
+                                            sharded_rows)
 
 __all__ = ["LMConfig", "LM", "Block", "Attention", "init_lm",
-           "lm_params_from_jax", "prefill", "decode_step", "train_forward",
-           "chunked_ce"]
+           "abstract_lm_params", "lm_params_from_jax", "prefill",
+           "decode_step", "train_forward", "chunked_ce"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -57,7 +72,9 @@ class LMConfig:
     """The reference's fields (``transformer.py:24-47``), so that configs
     compare field by field.  ``remat`` recomputes each block and each
     loss chunk in the backward of :func:`train_forward` (it is inert
-    when serving); the sharding fields must keep their defaults."""
+    when serving).  ``dp_axes``, ``tp_axis`` and ``sp_axis`` name mesh
+    axes (``registry.get_arch(name, axes)`` binds them); they act only
+    on DTensor activations under an active mesh."""
     name: str
     n_layers: int
     d_model: int
@@ -81,11 +98,6 @@ class LMConfig:
     sp_axis: Optional[str] = None
 
     def __post_init__(self):
-        if self.dp_axes or self.tp_axis is not None \
-                or self.sp_axis is not None:
-            raise ValueError(f"{self.name}: the sharding fields (dp_axes, "
-                             "tp_axis, sp_axis) are not ported; they must "
-                             "keep their defaults")
         if self.param_dtype not in _DTYPES:
             raise ValueError(f"{self.name}: param_dtype {self.param_dtype!r} "
                              f"is not one of {tuple(_DTYPES)}")
@@ -172,6 +184,12 @@ def init_lm(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
                                          device=device))
 
 
+def abstract_lm_params(cfg: LMConfig) -> LM:
+    """The parameters' shapes and types on the meta device: nothing is
+    allocated and nothing drawn (``transformer.py:102-104``)."""
+    return init_lm(cfg, None, device="meta")
+
+
 def _tensor(a, device) -> torch.Tensor:
     """A numpy array (bf16 ones as ``ml_dtypes.bfloat16``) as a tensor."""
     a = np.asarray(a)
@@ -242,14 +260,21 @@ def _attention(cfg: LMConfig, p: Attention, x: torch.Tensor,
     these tokens in prefill, the updated caches in decode."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = L.dense(p.wq, x).reshape(b, s, h, dh).transpose(1, 2)
-    k = L.dense(p.wk, x).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = L.dense(p.wv, x).reshape(b, s, hkv, dh).transpose(1, 2)
+    dp = cfg.dp_axes
+    q = _batch_only(cfg, L.dense(p.wq, x, dp)).reshape(b, s, h, dh) \
+        .transpose(1, 2)
+    k = _batch_only(cfg, L.dense(p.wk, x, dp)).reshape(b, s, hkv, dh) \
+        .transpose(1, 2)
+    v = _batch_only(cfg, L.dense(p.wv, x, dp)).reshape(b, s, hkv, dh) \
+        .transpose(1, 2)
     q = L.rope(q, positions[:, None, :], cfg.rope_theta)
     k = L.rope(k, positions[:, None, :], cfg.rope_theta)
     if kv is None:
         o = L.gqa_attention(q, k, v, causal=True, window=cfg.window,
-                            impl=impl)
+                            impl=impl, batch_axes=cfg.dp_axes)
+    elif is_dtensor(kv[0]):
+        o = _decode_attention(cfg, q, k, v, kv, kv_len)
+        k, v = kv
     else:
         kc, vc = kv
         kc[:, :, kv_len:kv_len + s] = k
@@ -257,20 +282,105 @@ def _attention(cfg: LMConfig, p: Attention, x: torch.Tensor,
         o = decode_ref(q, kc, vc, kv_len + s, window=cfg.window)
         k, v = kc, vc
     o = o.to(x.dtype)  # the cache's type may differ (an f32 cache)
-    o = o.transpose(1, 2).reshape(b, s, h * dh)
-    return L.dense(p.wo, o), (k, v)
+    o = _merge_heads(o)
+    return L.dense(p.wo, o, dp), (k, v)
+
+
+def _batch_only(cfg: LMConfig, t: torch.Tensor) -> torch.Tensor:
+    """A DTensor [B, ...] with the batch sharded over ``dp_axes`` and
+    nothing else; any other tensor as it is.  Used on a projection
+    [B,S,H*dh] (every head whole on each rank, as the attention needs
+    it: 36 or 48 heads do not split over 16 ranks) and on a block's
+    normed input (the sequence-sharded carry gathered before the
+    products: DTensor's choice of a product's strategy for an input
+    sharded twice takes a minute on a 2x16x16 mesh), and on a
+    row-parallel product's output (its gradient then reaches the product
+    batch-sharded: some PyTorch releases refuse to flatten a
+    sequence-sharded gradient into the product's rows)."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    dp = [dim_in(n, cfg.dp_axes) for n in mesh.mesh_dim_names]
+    ranks = 1
+    for i, d in enumerate(dp):
+        ranks *= mesh.size(i) if d else 1
+    # a batch the dp ranks do not divide (B=1) stays whole, as the
+    # reference's B=1 cells place it
+    split = t.shape[0] % ranks == 0
+    pl = [Shard(0) if d and split else Replicate() for d in dp]
+    return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """[B,H,S,dh] -> [B,S,H*dh].  A DTensor (batch-sharded, heads whole)
+    is merged inside ``local_map``, whose backward brings the gradient
+    back to these placements before the split into heads: DTensor
+    cannot split a dimension sharded 16 ways into 36 heads."""
+    b, h, s, dh = o.shape
+    if not is_dtensor(o):
+        return o.transpose(1, 2).reshape(b, s, h * dh)
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(o.placements)
+    return local_map(lambda t: t.transpose(1, 2).reshape(t.shape[0], s,
+                                                         h * dh),
+                     out_placements=list(pl), in_placements=(pl,))(o)
+
+
+def _decode_attention(cfg: LMConfig, q, k, v, kv, kv_len: int):
+    """Decode against a DTensor cache (one layer's ``[B,Hkv,Smax,dh]``,
+    the sequence sharded over tp, or over every axis at B = 1): the
+    layer's cache is gathered over the sequence (kept sharded over the
+    batch as the cache is), the token's K and V written at ``kv_len``,
+    ``decode_ref`` run inside ``local_map`` with the heads whole, and
+    the updated shard copied back into the caller's cache.  The gather
+    is this layout's cost: the reference leaves the same choice to
+    GSPMD."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    kc, vc = kv
+    mesh = kc.device_mesh
+    keep_b = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+              for pl in kc.placements]
+    s = q.shape[2]
+    kv_pl = tuple(keep_b)
+
+    def attend(ql, kl, vl, kcl, vcl):
+        kcl = kcl.clone()
+        vcl = vcl.clone()
+        kcl[:, :, kv_len:kv_len + s] = kl
+        vcl[:, :, kv_len:kv_len + s] = vl
+        return (decode_ref(ql, kcl, vcl, kv_len + s, window=cfg.window),
+                kcl, vcl)
+
+    ins = [t.redistribute(mesh, keep_b) for t in (q, k, v, kc, vc)]
+    o, kn, vn = local_map(attend, out_placements=(kv_pl, kv_pl, kv_pl),
+                          in_placements=(kv_pl,) * 5)(*ins)
+    for cache, new in ((kc, kn), (vc, vn)):
+        cache.to_local().copy_(
+            new.redistribute(mesh, cache.placements).to_local())
+    return o
 
 
 def _block(cfg: LMConfig, p: Block, x: torch.Tensor, positions, kv=None,
            kv_len: int = 0, impl: str = "kernel"):
     """One layer of prefill or decode (the bodies of ``transformer.py``'s
     scans): returns (x, (k, v))."""
-    h = _norm(cfg, p.ln1, x)
+    # under a mesh the block runs in the batch layout: the carry is
+    # gathered over the sequence, and each row-parallel product's partial
+    # sums are reduced into that layout, so that every residual add and
+    # its gradient are batch-sharded too
+    x = _batch_only(cfg, x)
+    h = _batch_only(cfg, _norm(cfg, p.ln1, x))
     a, kv_out = _attention(cfg, p.attn, h, positions, kv, kv_len, impl)
+    a = _batch_only(cfg, a)
     if cfg.parallel_block:
-        return x + a + L.mlp(p.mlp, h, cfg.act), kv_out
+        return x + a + _batch_only(cfg, L.mlp(p.mlp, h, cfg.act,
+                                              cfg.dp_axes)), kv_out
     mid = x + a
-    return mid + L.mlp(p.mlp, _norm(cfg, p.ln2, mid), cfg.act), kv_out
+    return mid + _batch_only(cfg, L.mlp(
+        p.mlp, _batch_only(cfg, _norm(cfg, p.ln2, mid)), cfg.act,
+        cfg.dp_axes)), kv_out
 
 
 def _train_block(cfg: LMConfig, p: Block, x: torch.Tensor,
@@ -280,12 +390,24 @@ def _train_block(cfg: LMConfig, p: Block, x: torch.Tensor,
     return _block(cfg, p, x, positions, impl="plain")[0]
 
 
+def _constrain_act(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """The carry at ``P(dp, sp, None)`` (``transformer.py:152-158``):
+    each layer's remat residual is then S-sharded; the identity without
+    a mesh or ``sp_axis``."""
+    if cfg.sp_axis is None:
+        return x
+    from repro_torch.configs.base import P
+    return constrain(x, P(cfg.dp_axes or None, cfg.sp_axis, None))
+
+
 def _stack(cfg: LMConfig, params: LM, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     """Every layer in turn (``transformer.py:161-175``); with
     ``cfg.remat`` each block keeps only its input for the backward and
-    is recomputed there (the reference's ``nothing_saveable`` policy)."""
+    is recomputed there (the reference's ``nothing_saveable`` policy).
+    Under a mesh the carry enters each layer sequence-sharded."""
     for p in params.blocks:
+        x = _constrain_act(cfg, x)
         if cfg.remat:
             x = checkpoint(_train_block, cfg, p, x, positions,
                            use_reentrant=False)
@@ -294,12 +416,31 @@ def _stack(cfg: LMConfig, params: LM, x: torch.Tensor,
     return x
 
 
+def _embed(cfg: LMConfig, params: LM) -> torch.Tensor:
+    """The embedding, gathered over the data-parallel axes when it is a
+    DTensor (``layers.fsdp_gather``)."""
+    return L.fsdp_gather(params.embed, cfg.dp_axes)
+
+
+def _lookup(cfg: LMConfig, params: LM, tokens) -> torch.Tensor:
+    """The embedding rows of ``tokens``: an index, or for a DTensor
+    embedding ``mesh_compat.sharded_rows`` (vocab-parallel, the rows
+    kept sharded over tp), all-reduced over tp into the batch-sharded
+    layout (else every later product would see a ``Partial`` input, and
+    DTensor would gather its weight whole)."""
+    table = _embed(cfg, params)
+    if is_dtensor(table):   # the rows' partial sums reduced at once
+        return _batch_only(cfg, sharded_rows(table, tokens))
+    return table[tokens]
+
+
 def _logits(cfg: LMConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     """The final norm, then logits against the tied embedding in f32:
     both operands upcast, as ``preferred_element_type=float32`` sums the
     exact products of bf16 values in f32."""
     x = _norm(cfg, params.final_norm, x)
-    return torch.einsum("bsd,vd->bsv", x.float(), params.embed.float())
+    return torch.einsum("bsd,vd->bsv", x.float(),
+                        _embed(cfg, params).float())
 
 
 def _ce_chunk(cfg: LMConfig, params: LM, x: torch.Tensor,
@@ -309,9 +450,16 @@ def _ce_chunk(cfg: LMConfig, params: LM, x: torch.Tensor,
     f32 through the whole backward, ``transformer.py:195-198``), the
     softmax and the CE in f32."""
     h = _norm(cfg, params.final_norm, x)
-    logits32 = torch.einsum("bsd,vd->bsv", h, params.embed).float()
+    logits = torch.einsum("bsd,vd->bsv", h, _embed(cfg, params))
+    if cfg.tp_axis is not None:           # transformer.py:201-204
+        from repro_torch.configs.base import P
+        logits = constrain(logits, P(cfg.dp_axes or None, None,
+                                     cfg.tp_axis))
+    logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
-    picked = torch.gather(logits32, -1,
+    # a vocab-sharded DTensor is gathered for the pick: DTensor's rule
+    # for a gather along a sharded dimension fails on 3-D indices
+    picked = torch.gather(_batch_only(cfg, logits32), -1,
                           labels.clamp_min(0)[..., None])[..., 0]
     return torch.sum((lse - picked) * (labels != -1))
 
@@ -323,6 +471,7 @@ def chunked_ce(cfg: LMConfig, params: LM, x: torch.Tensor,
     chunks of ``min(cfg.ce_chunk, S)`` positions, so only one chunk's
     logits [B,c,V] exist at a time.  As in the reference, the last ``S
     mod c`` positions are left out when c does not divide S."""
+    x = _batch_only(cfg, x)    # a sequence-sharded carry is gathered
     b, s, _ = x.shape
     c = min(cfg.ce_chunk, s)
     n = s // c
@@ -346,7 +495,17 @@ def _on(params: LM, tokens, device) -> torch.Tensor:
     if params.device != device:
         raise ValueError(f"LM parameters are on {params.device}, the call "
                          f"asks for {device}")
+    if is_dtensor(tokens):
+        return tokens.to(torch.int64)
     return torch.as_tensor(tokens).to(device, torch.int64)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    """``arange(S)`` per row of tokens [B, S] (replicated over the mesh
+    of DTensor tokens)."""
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    return replicate_as(pos, tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -358,15 +517,20 @@ def train_forward(cfg: LMConfig, params: LM, batch, *,
     in f32, differentiable in the parameters (``transformer.py:
     219-225``).  Attention is ``blocked_attention`` on every device."""
     tokens = _on(params, batch["tokens"], device)
-    labels = torch.as_tensor(batch["labels"]).to(tokens.device)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params.embed[tokens]
+    labels = _labels(batch["labels"], tokens)
+    positions = _positions(tokens)
+    x = _lookup(cfg, params, tokens)
     x = _stack(cfg, params, x, positions)
     return chunked_ce(cfg, params, x, labels)
 
 
-@torch.inference_mode()
+def _labels(labels, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(labels):
+        return labels
+    return torch.as_tensor(labels).to(tokens.device)
+
+
+@serving
 def prefill(cfg: LMConfig, params: LM, tokens, *, impl: str = "kernel",
             device=None) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                       torch.Tensor]]:
@@ -384,8 +548,16 @@ def _prefill(cfg: LMConfig, params: LM, tokens, impl: str, device,
     MoE block in ``models.moe``."""
     tokens = _on(params, tokens, device)
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params.embed[tokens]
+    positions = _positions(tokens)
+    x = _lookup(cfg, params, tokens)
+    if is_dtensor(x):       # DTensors are stacked, not written into
+        kvs = []
+        for p in params.blocks:
+            x, kv = layer(cfg, p, x, positions, impl=impl)
+            kvs.append(kv)
+        return (_logits(cfg, params, x[:, -1:, :])[:, 0],
+                (torch.stack([k for k, _ in kvs]),
+                 torch.stack([v for _, v in kvs])))
     shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.d_head)
     ks = torch.empty(shape, dtype=x.dtype, device=x.device)
     vs = torch.empty_like(ks)
@@ -394,7 +566,7 @@ def _prefill(cfg: LMConfig, params: LM, tokens, impl: str, device,
     return _logits(cfg, params, x[:, -1:, :])[:, 0], (ks, vs)
 
 
-@torch.inference_mode()
+@serving
 def decode_step(cfg: LMConfig, params: LM, token, cache, kv_len: int, *,
                 device=None):
     """token [B,1]; cache (k, v) [L,B,Hkv,Smax,dh]; kv_len the tokens
@@ -415,9 +587,9 @@ def _decode(cfg: LMConfig, params: LM, token, cache, kv_len: int, device,
         raise ValueError(f"decode_step: the cache holds {kc.shape[3]} "
                          f"positions, {kv_len} are taken")
     b = token.shape[0]
-    positions = torch.full((b, 1), kv_len, dtype=torch.int64,
-                           device=token.device)
-    x = params.embed[token]
+    positions = replicate_as(torch.full((b, 1), kv_len, dtype=torch.int64,
+                                        device=token.device), token)
+    x = _lookup(cfg, params, token)
     for i, p in enumerate(params.blocks):
         x, _ = layer(cfg, p, x, positions, kv=(kc[i], vc[i]), kv_len=kv_len)
     return _logits(cfg, params, x), (kc, vc)

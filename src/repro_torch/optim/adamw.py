@@ -15,6 +15,12 @@ card) raises :class:`PartialUpdateError`, which is not a
 ``RuntimeError``, so ``run_step_with_retry`` does not run a half-updated
 step again.  ``torch.optim.AdamW`` is a different function: it clips
 separately and decays before the Adam step.
+
+Parameters may be DTensors: the moments are then DTensors of the same
+placements, each gradient is first redistributed to its parameter's
+placements (the gradient reduction), the global norm sums each leaf's
+local squares across the ranks that shard it, and the update runs on
+each rank's local shards.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any, Dict, Mapping, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "named_leaves",
            "global_norm", "PartialUpdateError"]
@@ -61,7 +68,9 @@ def adamw_init(params: Any) -> dict:
     leaves = named_leaves(params)
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: torch.zeros_like(p, dtype=torch.float32)
+                if isinstance(p, DTensor) else
+                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for n, p in leaves.items()}
 
     device = next(iter(leaves.values())).device if leaves else "cpu"
@@ -75,6 +84,10 @@ def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     with itself, so a 2 GB table takes no temporary."""
     total = None
     for g in grads.values():
+        if isinstance(g, DTensor):
+            sq = _sharded_sq(g)
+            total = sq if total is None else total + sq
+            continue
         flat = g.reshape(-1)
         flat = flat if flat.dtype == torch.float32 else flat.float()
         sq = torch.dot(flat, flat)
@@ -82,6 +95,36 @@ def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     if total is None:
         raise ValueError("global_norm: no gradients")
     return torch.sqrt(total + 1e-16)
+
+
+def _sharded_sq(g: DTensor) -> torch.Tensor:
+    """sum(g**2) of a DTensor as a plain f32 scalar: each rank's local
+    dot product, summed over the mesh dimensions that shard ``g``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if any(not isinstance(pl, (Shard, Replicate)) for pl in g.placements):
+        g = g.redistribute(g.device_mesh,
+                           [pl if isinstance(pl, Shard) else Replicate()
+                            for pl in g.placements])
+    flat = g.to_local().reshape(-1)
+    flat = flat if flat.dtype == torch.float32 else flat.float()
+    local = torch.dot(flat, flat)
+    return DTensor.from_local(
+        local, g.device_mesh,
+        [Partial() if isinstance(pl, Shard) else Replicate()
+         for pl in g.placements], run_check=False).full_tensor()
+
+
+def _local_shards(grads, state, leaves):
+    """The gradients at their parameters' placements, then every
+    DTensor of the update as its local shard."""
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+    grads = {n: g.redistribute(leaves[n].device_mesh, leaves[n].placements)
+             if isinstance(g, DTensor) else g for n, g in grads.items()}
+    return ({n: local(g) for n, g in grads.items()},
+            {n: local(m) for n, m in state["mu"].items()},
+            {n: local(v) for n, v in state["nu"].items()},
+            {n: local(p) for n, p in leaves.items()}, grads)
 
 
 def _scratch(leaves: Mapping[str, torch.Tensor],
@@ -140,6 +183,10 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict, params: Any,
         raise ValueError(f"adamw_update: gradients for {sorted(grads)}, "
                          f"parameters {sorted(leaves)}")
     # everything that can fail comes before the first write
+    sharded = any(isinstance(p, DTensor) for p in leaves.values())
+    if sharded:
+        grads_l, mus_l, nus_l, leaves_l, grads = _local_shards(
+            grads, state, leaves)
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / gnorm, max=1.0)
@@ -147,6 +194,8 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict, params: Any,
     bc1 = 1 - torch.pow(cfg.b1, stepf)
     bc2 = 1 - torch.pow(cfg.b2, stepf)
     mus, nus = state["mu"], state["nu"]
+    if sharded:
+        grads, mus, nus, leaves = grads_l, mus_l, nus_l, leaves_l
     for name, p in leaves.items():
         if mus[name].shape != p.shape or nus[name].shape != p.shape:
             raise ValueError(f"adamw_update: the moments of {name} do not "

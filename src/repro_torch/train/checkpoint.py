@@ -9,6 +9,9 @@ A save fills a temporary directory, fsyncs it, then renames it into
 place, and a ``latest`` symlink flips last, so a crash never leaves a
 partial ``step_<N>`` visible.  :class:`AsyncCheckpointer` copies the
 leaves to the host, then writes them on a thread, one save in flight.
+A DTensor leaf is saved whole (``full_tensor``, a collective every rank
+of its mesh joins), and only rank 0 of an initialised process group
+writes; the format is the same.
 
 A tree is a nesting of mappings, lists, tuples and ``nn.Module``\\ s
 over tensors or numpy arrays.  A leaf's path is its keys joined by
@@ -19,7 +22,10 @@ opt_state)`` gives ``0/blocks.0.attn.wq.w``, ``1/mu/table_3``,
 ``"bfloat16"`` in the manifest, and restored bit for bit.  A restore
 checks the paths and shapes against the tree it fills and raises
 ``ValueError`` on any difference; it never fills leaves by position
-alone.  Resharding on restore comes with the sharding pieces.
+alone.  A restore fills a DTensor leaf's local shard from the saved
+whole value (no data moves), and ``shardings=(mesh, specs)`` places
+the restored leaves on a mesh, which may differ from the one that
+saved them (the elastic restart, ``checkpoint.py:90-93``).
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ from typing import Any, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "AsyncCheckpointer"]
@@ -63,9 +71,12 @@ def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
 
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
-    """A host copy of ``leaf`` (never a view of it) and its dtype name."""
+    """A host copy of ``leaf`` (never a view of it) and its dtype name;
+    a DTensor's whole value."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             words = t.view(torch.int16).to("cpu", copy=True).numpy()
             return words.view(np.uint16), _BF16
@@ -127,10 +138,22 @@ def _write(directory: Path, step: int, paths, arrays, dtypes,
     return final
 
 
+def _writer() -> bool:
+    """Rank 0 of an initialised process group writes; a lone process
+    always does."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str | os.PathLike, step: int, tree: Any,
                     extra: Optional[dict] = None) -> Path:
-    """Write ``tree`` as ``<directory>/step_<step>``; returns that path."""
-    return _write(Path(directory), step, *_to_host(tree), extra)
+    """Write ``tree`` as ``<directory>/step_<step>``; returns that path.
+    With a process group every rank calls it (DTensor leaves are
+    gathered) and rank 0 writes."""
+    hosted = _to_host(tree)
+    final = Path(directory) / f"step_{step:08d}"
+    if _writer():
+        final = _write(Path(directory), step, *hosted, extra)
+    return final
 
 
 def latest_step(directory: str | os.PathLike) -> Optional[int]:
@@ -148,19 +171,35 @@ def _from_words(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _shard_of(value: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """This rank's shard of the whole ``value`` under ``like``'s
+    placements (split locally, no collective)."""
+    return distribute_tensor(value.to(like.device), like.device_mesh,
+                             like.placements,
+                             src_data_rank=None).to_local()
+
+
 def _fill(tree: Any, values) -> Any:
     """``tree`` with its leaves taken in order from ``values``: tensors
     (and a module's) are written in place, numpy leaves replaced."""
     if isinstance(tree, nn.Module):
         with torch.no_grad():
             for t in tree.state_dict(keep_vars=True).values():
-                t.copy_(next(values))
+                v = next(values)
+                if isinstance(t, DTensor):
+                    t.to_local().copy_(_shard_of(v, t))
+                else:
+                    t.copy_(v)
         return tree
     if isinstance(tree, Mapping):
         return {k: _fill(v, values) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_fill(v, values) for v in tree)
     value = next(values)
+    if isinstance(tree, DTensor):
+        with torch.no_grad():
+            tree.to_local().copy_(_shard_of(value, tree))
+        return tree
     if isinstance(tree, torch.Tensor):
         with torch.no_grad():
             tree.copy_(value)
@@ -169,12 +208,21 @@ def _fill(tree: Any, values) -> Any:
 
 
 def restore_checkpoint(directory: str | os.PathLike, tree_like: Any,
-                       step: Optional[int] = None) -> Tuple[Any, int, dict]:
+                       step: Optional[int] = None,
+                       shardings=None) -> Tuple[Any, int, dict]:
     """Fill ``tree_like`` from the checkpoint of ``step`` (default: the
     latest): returns ``(tree, step, extra)``, where ``tree`` holds
     ``tree_like``'s own tensors, now holding the saved values.  Raises
     ``FileNotFoundError`` without a checkpoint and ``ValueError`` when
-    the saved leaves' paths or shapes are not ``tree_like``'s."""
+    the saved leaves' paths or shapes are not ``tree_like``'s.
+
+    ``shardings=(mesh, spec_tree)`` first places ``tree_like`` on
+    ``mesh`` as ``ElasticMesh.reshard`` does (``spec_tree`` maps its
+    parameter names or keys to ``configs.base.P``; ``None`` replicates),
+    then fills each rank's shards."""
+    if shardings is not None:
+        mesh, spec_tree = shardings
+        tree_like = _reshard(tree_like, mesh, spec_tree)
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -202,6 +250,17 @@ def restore_checkpoint(directory: str | os.PathLike, tree_like: Any,
     return _fill(tree_like, iter(arrays)), step, manifest.get("extra", {})
 
 
+def _reshard(tree, mesh, spec_tree):
+    """``tree`` (a module, mapping, list or tuple of them) placed on
+    ``mesh`` by the matching ``spec_tree``."""
+    from repro_torch.train.fault_tolerance import ElasticMesh
+    em = ElasticMesh(model_parallel=1)
+    if isinstance(tree, (list, tuple)):
+        specs = spec_tree if spec_tree is not None else [None] * len(tree)
+        return type(tree)(_reshard(t, mesh, s) for t, s in zip(tree, specs))
+    return em.reshard(tree, mesh, spec_tree)
+
+
 class AsyncCheckpointer:
     """One background writer thread; ``save`` copies the leaves to the
     host and returns, and the next save (or ``wait``) blocks until the
@@ -216,6 +275,9 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         self.wait()
         hosted = _to_host(tree)
+
+        if not _writer():
+            return
 
         def work():
             try:

@@ -7,17 +7,18 @@
   transient failures; the last error always raises again.
 - :class:`StragglerPolicy`: a step-time tracker that flags outlier steps
   and recommends re-dispatch when steps stay slow.
-
-``ElasticMesh`` comes with the sharding pieces.
+- :class:`ElasticMesh`: the largest usable ``(data, model)`` mesh over
+  the live ranks, and the state resharded onto it.
 """
 from __future__ import annotations
 
 import signal
 import statistics
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
-__all__ = ["PreemptionGuard", "run_step_with_retry", "StragglerPolicy"]
+__all__ = ["PreemptionGuard", "run_step_with_retry", "StragglerPolicy",
+           "ElasticMesh"]
 
 
 class PreemptionGuard:
@@ -74,6 +75,60 @@ def run_step_with_retry(step_fn: Callable[..., Any], *args,
             if on_retry is not None:
                 on_retry(attempt, exc)
             time.sleep(backoff_s * (2 ** (attempt - 1)))
+
+
+class ElasticMesh:
+    """Rebuilds the largest usable (data, model) mesh from live ranks
+    (``fault_tolerance.py:73-105``).
+
+    Keeps the model axis fixed (the TP degree is baked into the weight
+    shapes) and shrinks the data axis to the largest multiple that fits:
+    lose a pod, halve DP, reshard, continue."""
+
+    def __init__(self, model_parallel: int):
+        self.model_parallel = model_parallel
+
+    def build(self, ranks=None, device_type: str = "cuda"):
+        """A ``DeviceMesh`` over the first ``dp * model_parallel`` of
+        ``ranks`` (default: every rank of the initialised group)."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        if ranks is None:
+            ranks = list(range(dist.get_world_size()))
+        mp = self.model_parallel
+        dp = max(1, len(ranks) // mp)
+        grid = torch.tensor(list(ranks)[:dp * mp]).reshape(dp, mp)
+        return DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
+
+    def reshard(self, state, mesh, spec_tree):
+        """``state`` (a module, or a mapping of tensors, nested mappings
+        allowed) placed on ``mesh`` by ``spec_tree`` (the matching
+        mapping of ``configs.base.P``; ``None`` replicates everything).
+        A DTensor already on ``mesh`` is redistributed; one on another
+        mesh, or a plain tensor, is placed from its whole value, which
+        every rank holds (so no data moves: each rank keeps its own
+        shard)."""
+        from torch import nn
+
+        from repro_torch.configs.base import (distribute_params,
+                                              to_placements)
+        if isinstance(state, nn.Module):
+            return distribute_params(state, mesh, spec_tree)
+        if isinstance(state, Mapping):
+            return {k: self.reshard(v, mesh, None if spec_tree is None
+                                    else spec_tree[k])
+                    for k, v in state.items()}
+        return _place(state, mesh, to_placements(spec_tree, mesh))
+
+
+def _place(t, mesh, placements):
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(t, DTensor):
+        if t.device_mesh == mesh:
+            return t.redistribute(mesh, placements)
+        t = t.full_tensor()
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
 
 class StragglerPolicy:

@@ -1722,3 +1722,143 @@ def test_train_launcher_trains_moe_and_gnn_on_the_card(cuda_device, arch,
     hist = train.main(["--arch", arch, "--steps", "3", "--seq", "32"])
     assert len(hist) == 3 and all(np.isfinite(r["loss"]) for r in hist)
     assert "done: loss" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the sharding pieces on the card: an NCCL group of one rank
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """An NCCL group of this process alone and its 1 x 1 mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    yield make_local_mesh()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_local_mesh_is_one_by_one(nccl_mesh):
+    from repro_torch.configs.base import axes_for_mesh
+    assert tuple(nccl_mesh.shape) == (1, 1)
+    assert nccl_mesh.mesh_dim_names == ("data", "model")
+    assert nccl_mesh.device_type == "cuda"
+    ax = axes_for_mesh(nccl_mesh)
+    assert ax.dp == ("data",) and ax.tp == "model" and ax.dp_size == 1
+
+
+def _reduced_lm(name, dtype, ax):
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    arch = get_arch(name, axes=ax)
+    cfg = dataclasses.replace(arch.reduced_cfg, param_dtype=dtype,
+                              dp_axes=arch.cfg.dp_axes,
+                              tp_axis=arch.cfg.tp_axis,
+                              sp_axis=arch.cfg.sp_axis)
+    return cfg, dataclasses.replace(cfg, dp_axes=(), tp_axis=None,
+                                    sp_axis=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", ["starcoder2-7b", "command-r-35b"])
+def test_sharded_prefill_is_bit_equal_one_k4_per_layer(nccl_mesh, name,
+                                                       dtype):
+    """The reduced LM's prefill through DTensor parameters on the 1 x 1
+    mesh, K4 inside ``local_map``: one K4 launch per layer, logits and
+    cache bit-equal to the unsharded prefill of the same weights."""
+    import copy
+
+    from repro_torch.configs.base import (axes_for_mesh, distribute_params,
+                                          distribute_tree, lm_param_sharding)
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.mesh_compat import use_mesh
+    dev = torch.device("cuda")
+    ax = axes_for_mesh(nccl_mesh)
+    cfg, plain = _reduced_lm(name, dtype, ax)
+    params = T.init_lm(plain, torch.Generator(dev).manual_seed(3), dev)
+    sharded = distribute_params(copy.deepcopy(params), nccl_mesh,
+                                lm_param_sharding(cfg, ax))
+    tokens = torch.from_numpy(
+        lm_batch(0, 2, 96, cfg.vocab)["tokens"]).to(dev)
+    want, (wk, wv) = T.prefill(plain, params, tokens, device=dev)
+    flash_attention.launches = 0
+    with use_mesh(nccl_mesh):
+        got, (gk, gv) = T.prefill(
+            cfg, sharded, distribute_tree({"t": tokens}, nccl_mesh,
+                                          {"t": (ax.dp, None)})["t"],
+            device=dev)
+    assert flash_attention.launches == cfg.n_layers
+    assert torch.equal(got.full_tensor(), want)
+    assert torch.equal(gk.full_tensor(), wk)
+    assert torch.equal(gv.full_tensor(), wv)
+
+
+@pytest.mark.cuda
+def test_compressed_reducer_over_nccl_equals_the_cpu(nccl_mesh):
+    """Two rounds of ``CompressedReducer.reduce`` with an NCCL all-reduce
+    mean: wire and residual bit-equal to the same rounds on the CPU."""
+    from repro_torch.optim.compression import (CompressedReducer,
+                                               all_reduce_mean)
+    gen = torch.Generator().manual_seed(5)
+    grads = {"w": torch.randn((256, 96), generator=gen) * 1e-3,
+             "b": torch.randn((96,), generator=gen).to(torch.bfloat16)}
+    cr = CompressedReducer(torch.bfloat16)
+    card = {k: v.cuda() for k, v in grads.items()}
+    st, cst = cr.init_state(card), cr.init_state(grads)
+    for _ in range(2):
+        out, st = cr.reduce(card, st, all_reduce_mean())
+        cout, cst = cr.reduce(grads, cst, lambda w: {k: v / 1 for k, v in
+                                                     w.items()})
+        for k in grads:
+            assert out[k].dtype == torch.float32
+            assert torch.equal(out[k].cpu(), cout[k])
+            assert torch.equal(st[k].cpu(), cst[k])
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_with_shardings_on_the_card(nccl_mesh, tmp_path):
+    """DTensor parameters and AdamW moments saved whole (rank 0 writes)
+    and restored onto a mesh ``ElasticMesh`` builds with ``shardings=``:
+    bit-equal."""
+    from repro_torch.configs.base import (axes_for_mesh, lm_param_sharding,
+                                          opt_sharding_like)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.fault_tolerance import ElasticMesh
+    dev = torch.device("cuda")
+    ax = axes_for_mesh(nccl_mesh)
+    cfg, plain = _reduced_lm("starcoder2-7b", "bfloat16", ax)
+    em = ElasticMesh(model_parallel=1)
+    mesh = em.build()
+    specs = lm_param_sharding(cfg, ax)
+    params = em.reshard(T.init_lm(plain, torch.Generator(dev).manual_seed(4),
+                                  dev), mesh, specs)
+    opt = adamw_init(params)
+    for m in opt["mu"].values():
+        m.to_local().uniform_(-1, 1)
+    save_checkpoint(tmp_path, 2, (params, opt))
+    fresh = T.init_lm(plain, torch.Generator(dev).manual_seed(9), dev)
+    fresh_opt = adamw_init(fresh)
+    (rp, ro), step, _ = restore_checkpoint(
+        tmp_path, (fresh, fresh_opt),
+        shardings=(mesh, (specs, opt_sharding_like(specs))))
+    assert step == 2
+    for (n, a), (_, b) in zip(rp.named_parameters(),
+                              params.named_parameters()):
+        assert torch.equal(a.full_tensor(), b.full_tensor()), n
+    for n in opt["mu"]:
+        assert torch.equal(ro["mu"][n].full_tensor(),
+                           opt["mu"][n].full_tensor()), n

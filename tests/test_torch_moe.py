@@ -364,8 +364,22 @@ def test_moe_configs_are_the_reference_configs(name):
         assert dataclasses.asdict(port) == dataclasses.asdict(want)
         assert port.n_params == want.n_params
         assert port.n_active_params == want.n_active_params
-    with pytest.raises(ValueError, match="sharding"):
-        dataclasses.replace(arch.reduced_cfg, tp_axis="model")
+    # the sharding fields are accepted, and a mesh's axes are bound into
+    # the config (moe_mode, dispatch_groups = dp_size) as the
+    # reference's make_lm_arch binds them, on one pod and on two
+    from repro.configs.base import axes_for_mesh as j_axes_for_mesh
+    from repro_torch.configs.base import axes_for_mesh
+    for sizes in ({"data": 16, "model": 16},
+                  {"pod": 2, "data": 16, "model": 16}):
+        mesh = type("Mesh", (), {"axis_names": tuple(sizes),
+                                 "shape": sizes})()
+        bound = get_arch(name, axes=axes_for_mesh(mesh)).cfg
+        want = j_get_arch(name, axes=j_axes_for_mesh(mesh)).cfg
+        assert dataclasses.asdict(bound) == dataclasses.asdict(want)
+        assert bound.tp_axis == bound.sp_axis == "model"
+        assert bound.dispatch_groups == 16 * sizes.get("pod", 1)
+    assert dataclasses.replace(arch.reduced_cfg,
+                               tp_axis="model").tp_axis == "model"
 
 
 @pytest.mark.parametrize("name", MOE_ARCHS)

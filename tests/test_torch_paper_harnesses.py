@@ -178,7 +178,11 @@ def test_run_entry_point_prints_the_references_rows(tmp_path, capsys):
                                       "table5_model", "fig6_flexibility")] \
         == ["table2_profile", "fig5_sweep", "table5_model",
             "fig6_flexibility"]
-    assert "roofline" not in names
+    # the reference's roofline row, last, from the committed dry run
+    assert names[-1] == "roofline"
+    roof = rows[-1].split(",")
+    assert int(roof[1]) == 40 and "worst_fraction=" in roof[2], rows[-1]
+    assert (tmp_path / "roofline.json").exists()
     assert any("paper_faithful=36/36" in r for r in rows)
     assert any("vol_class_match=6/6" in r for r in rows)
     for name in ("table2", "fig5", "table5", "fig6"):

@@ -147,9 +147,22 @@ def test_registry_names_every_reference_arch():
 
 
 def test_config_rejects_sharding_fields():
+    """The sharding fields are accepted (they used to be refused), and a
+    mesh's axes are bound into every dense LM's config as the
+    reference's ``make_lm_arch`` binds them."""
+    from repro.configs.base import axes_for_mesh as j_axes_for_mesh
+    from repro_torch.configs.base import axes_for_mesh
     cfg = get_arch("starcoder2-7b").reduced_cfg
-    with pytest.raises(ValueError, match="sharding"):
-        dataclasses.replace(cfg, tp_axis="model")
+    assert dataclasses.replace(cfg, tp_axis="model").tp_axis == "model"
+    for sizes in ({"data": 16, "model": 16},
+                  {"pod": 2, "data": 16, "model": 16}):
+        mesh = type("Mesh", (), {"axis_names": tuple(sizes),
+                                 "shape": sizes})()
+        for name in LM_ARCHS:
+            bound = get_arch(name, axes=axes_for_mesh(mesh)).cfg
+            want = j_get_arch(name, axes=j_axes_for_mesh(mesh)).cfg
+            assert dataclasses.asdict(bound) == dataclasses.asdict(want)
+            assert bound.dp_axes == tuple(n for n in sizes if n != "model")
     assert T.LMConfig(**{**dataclasses.asdict(cfg),
                          "param_dtype": "float32"}).dtype == torch.float32
 
