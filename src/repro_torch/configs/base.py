@@ -224,28 +224,20 @@ def to_placements(spec: Optional[P], mesh) -> list:
     dimension split over several axes gives several ``Shard(d)``, which
     DTensor nests in mesh order; so the axes of one entry must come in
     mesh order, and ``ValueError`` is raised otherwise, or for an axis
-    the mesh lacks or one used twice.  A mesh dimension named
-    ``"pod+data"`` stands for both axes, in that order.  ``None``
-    replicates."""
-    from repro_torch.models.mesh_compat import axes_of_dim
+    the mesh lacks or one used twice.  ``None`` replicates."""
     names = tuple(mesh.mesh_dim_names)
-    groups = [axes_of_dim(n) for n in names]
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec or ()):
-        idx, axes, i = [], _axes_of(entry), 0
-        while i < len(axes):
-            hit = [j for j, g in enumerate(groups)
-                   if tuple(axes[i:i + len(g)]) == g]
-            if not hit:
-                raise ValueError(f"to_placements: axes {axes[i:]} of "
-                                 f"{spec!r} are not the mesh's {names}")
-            idx.append(hit[0])
-            i += len(groups[hit[0]])
+        axes = _axes_of(entry)
+        missing = [a for a in axes if a not in names]
+        if missing:
+            raise ValueError(f"to_placements: axes {missing} of {spec!r} "
+                             f"are not the mesh's {names}")
+        idx = [names.index(a) for a in axes]
         if idx != sorted(idx):
             raise ValueError(f"to_placements: {spec!r} splits dimension {d} "
-                             f"over {_axes_of(entry)} out of the mesh's "
-                             f"order {names}; DTensor nests shards in mesh "
-                             "order only")
+                             f"over {axes} out of the mesh's order {names}; "
+                             "DTensor nests shards in mesh order only")
         for i in idx:
             if not isinstance(out[i], Replicate):
                 raise ValueError(f"to_placements: axis {names[i]!r} is used "
@@ -315,16 +307,10 @@ def _mesh_sizes(mesh) -> Dict[str, int]:
 
 
 def axes_for_mesh(mesh) -> Axes:
-    """``base.py:39-46``: FSDP/batch over data (and pod), TP over model.
-    A ``"pod+data"`` dimension counts as both axes."""
-    from repro_torch.models.mesh_compat import axes_of_dim
+    """``base.py:39-46``: FSDP/batch over data (and pod), TP over model."""
     sizes = _mesh_sizes(mesh)
-    axes = [a for n in sizes for a in axes_of_dim(n)]
-    dp_size = 1
-    for n, size in sizes.items():
-        if all(a in ("pod", "data") for a in axes_of_dim(n)):
-            dp_size *= size
-    if "pod" in axes:
+    dp_size = sizes.get("pod", 1) * sizes.get("data", 1)
+    if "pod" in sizes:
         return Axes(dp=("pod", "data"), tp="model",
                     all_axes=("pod", "data", "model"), dp_size=dp_size)
     return Axes(dp=("data",), tp="model", all_axes=("data", "model"),

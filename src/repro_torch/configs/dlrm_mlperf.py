@@ -78,14 +78,15 @@ def training_batch(cfg: DLRMConfig, step: int, *, batch: int,
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+@serving
 def serve_step(cfg: DLRMConfig, params: DLRM, batch, *, impl="kernel",
                device=None) -> torch.Tensor:
     """serve_p99 / serve_bulk: the logits of one request."""
-    return serving(dlrm_forward)(cfg, params, batch, impl=impl,
-                                 device=device)
+    return dlrm_forward(cfg, params, batch, impl=impl, device=device)
 
 
+@serving
 def retrieval_step(cfg: DLRMConfig, params: DLRM, batch,
                    device=None) -> torch.Tensor:
     """retrieval_cand: the candidates' scores for one query."""
-    return serving(retrieval_score)(cfg, params, batch, device=device)
+    return retrieval_score(cfg, params, batch, device=device)

@@ -29,6 +29,12 @@ dispatch mode that sees each rank's local ops (DTensor unwraps first):
 - the peak bytes the step allocates on a rank, as ``MemTracker``
   counts them.
 
+``tests/test_torch_dryrun.py`` holds these three against
+``FlopCounterMode``, ``CommDebugMode`` and ``MemTracker`` on a reduced
+train cell.  The two-pod cells run on the reference's 2 x 16 x 16 mesh:
+DTensor moves a tensor split over pod and data as one collective per
+mesh dimension, and the records count each.
+
 ``memory.argument_bytes`` is one rank's shards of parameters, optimizer
 state and inputs (rank 0's, the largest where a dimension does not
 divide); ``memory.peak_bytes`` adds the step's tracked peak to it.
@@ -132,7 +138,8 @@ class RankTrace(TorchDispatchMode):
     took 84 s where this takes 13 s (starcoder2-7b train_4k cut to two
     layers, one CPU core): each mode's per-op bookkeeping (module
     trees, operation lists, fake-mode probes) costs more than the meta
-    op it watches."""
+    op it watches.  On a reduced train cell its three figures equal
+    theirs (``test_rank_trace_counts_as_the_torch_tools``)."""
 
     def __init__(self, sites: bool = False):
         super().__init__()
@@ -228,8 +235,7 @@ def _build(arch_name: str, shape_name: str, multi_pod: bool,
     for s in shape:
         world *= s
     ensure_fake_group(world)
-    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu",
-                                flatten_dp=True)
+    mesh = make_production_mesh(multi_pod=multi_pod)
     ax = axes_for_mesh(mesh)
     arch = get_arch(arch_name, axes=ax) if layers is None \
         else with_layers(arch_name, layers, axes=ax)

@@ -35,7 +35,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.kernel import (NEG_INF,
                                                        flash_attention)
-from repro_torch.models.mesh_compat import dim_in, is_dtensor, replicate_as
+from repro_torch.models.mesh_compat import is_dtensor, replicate_as
 
 __all__ = ["Dense", "Norm", "MLP", "init_dense", "dense", "init_norm",
            "rms_norm", "layer_norm", "rope", "blocked_attention",
@@ -75,7 +75,7 @@ def fsdp_gather(w: torch.Tensor, axes) -> torch.Tensor:
         return w
     from torch.distributed.tensor import Replicate
     names = w.device_mesh.mesh_dim_names
-    pl = [Replicate() if dim_in(n, axes) else p
+    pl = [Replicate() if n in axes else p
           for n, p in zip(names, w.placements)]
     return w if pl == list(w.placements) else \
         w.redistribute(w.device_mesh, pl)
@@ -254,7 +254,7 @@ def _sharded_attention(q, k, v, causal, window, impl, batch_axes):
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    pl = tuple(Shard(0) if dim_in(n, batch_axes) else Replicate()
+    pl = tuple(Shard(0) if n in (batch_axes or ()) else Replicate()
                for n in mesh.mesh_dim_names)
     q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
     fn = local_map(functools.partial(_attention_local, causal=causal,

@@ -9,8 +9,16 @@ is ``None`` and every model path is the unsharded one.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from typing import Iterator, Optional
+
+import torch
+from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 __all__ = ["active_device_mesh", "use_mesh"]
 
@@ -36,21 +44,7 @@ def use_mesh(mesh) -> Iterator[Optional[object]]:
         stack.pop()
 
 
-def axes_of_dim(name: str) -> tuple:
-    """The mesh axes a mesh dimension stands for: ``"pod+data"`` is the
-    flattened pod and data axes (see ``launch.mesh``), any other name
-    itself."""
-    return tuple(name.split("+"))
-
-
-def dim_in(name: str, axes) -> bool:
-    """Whether mesh dimension ``name`` is made of axes among ``axes``."""
-    axes = tuple(axes or ())
-    return all(a in axes for a in axes_of_dim(name))
-
-
 def is_dtensor(t) -> bool:
-    from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
 
 
@@ -59,7 +53,6 @@ def replicate_as(t, ref):
     a DTensor (so that the two combine in one op), else ``t``."""
     if not is_dtensor(ref) or is_dtensor(t):
         return t
-    from torch.distributed.tensor import DTensor, Replicate
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
@@ -81,14 +74,12 @@ def constrain(x, spec):
 def as_tensor_on(v, device):
     """``torch.as_tensor(v).to(device)``; a DTensor is returned as it
     is (it already lives on its mesh)."""
-    import torch
     if is_dtensor(v):
         return v
     return torch.as_tensor(v).to(device)
 
 
 def _holds_dtensor(args) -> bool:
-    from torch import nn
     for a in args:
         if isinstance(a, nn.Module):
             a = next(a.parameters(), None)
@@ -101,10 +92,6 @@ def serving(fn):
     """Run ``fn`` under ``torch.inference_mode``, or under
     ``torch.no_grad`` when an argument (a module's parameters, or a
     tensor) is a DTensor: DTensor's views of inference tensors fail."""
-    import functools
-
-    import torch
-
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         ctx = torch.no_grad() if _holds_dtensor(args) \
@@ -122,10 +109,6 @@ def sharded_rows(table, idx):
     (so the table is never gathered, nor is its gradient table-sized on
     a rank: each rank's gradient is its own rows', ``Partial`` over the
     dimensions that split ``idx``)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    from torch.distributed.tensor.experimental import local_map
     mesh = table.device_mesh
     idx = replicate_as(idx, table)
     split = [isinstance(pl, Shard) and pl.dim == 0
@@ -140,7 +123,6 @@ def sharded_rows(table, idx):
         table.shape, mesh, table.placements)
 
     def local(tl, il):
-        import torch
         mine = (il >= off) & (il < off + tl.shape[0])
         rows = tl[torch.where(mine, il - off, 0)]
         return rows * mine[..., None].to(tl.dtype)

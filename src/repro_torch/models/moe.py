@@ -40,7 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.mesh_compat import (active_device_mesh, constrain,
-                                            dim_in, is_dtensor, serving)
+                                            is_dtensor, serving)
 from repro_torch.models.transformer import LMConfig
 
 __all__ = ["MoEConfig", "MoELayer", "MoEBlock", "init_moe_layer",
@@ -281,7 +281,7 @@ def _group_placements(cfg: MoEConfig, mesh, g: int):
     reference's ``shard_map`` over dp), else replicated."""
     from torch.distributed.tensor import Replicate, Shard
     grouped = cfg.tp_axis is not None and g > 1
-    return tuple(Shard(0) if grouped and dim_in(n, cfg.dp_axes)
+    return tuple(Shard(0) if grouped and n in cfg.dp_axes
                  else Replicate() for n in mesh.mesh_dim_names)
 
 
@@ -422,27 +422,30 @@ def moe_apply(p: MoELayer, x: torch.Tensor, cfg: MoEConfig,
 # ---------------------------------------------------------------------------
 def _moe_block(cfg: MoEConfig, p: MoEBlock, x: torch.Tensor, positions,
                kv=None, kv_len: int = 0, impl: str = "kernel",
-               routing: Optional[List[dict]] = None):
+               routing: Optional[List[dict]] = None, sharded: bool = False):
     """``moe.py:230-238``: attention, then the MoE FFN (no parallel
-    block); returns (x, aux, (k, v))."""
-    x = T._batch_only(cfg, x)     # the batch layout, as the dense block
-    h = T._batch_only(cfg, T._norm(cfg, p.ln1, x))
+    block); returns (x, aux, (k, v)).  ``sharded`` as in the dense
+    block (``transformer._block``)."""
+    lay, _ = T._layout(cfg, sharded)  # the batch layout, as the dense block
+    x = lay(x)
+    h = lay(T._norm(cfg, p.ln1, x))
     with torch.profiler.record_function("moe.attention"):
         a, kv_out = T._attention(cfg, p.attn, h, positions, kv, kv_len,
-                                 impl)
-    mid = x + T._batch_only(cfg, a)
+                                 impl, sharded)
+    mid = x + lay(a)
     # a DTensor's tokens are flattened from the batch rows of each rank
-    h2 = T._batch_only(cfg, T._norm(cfg, p.ln2, mid))
+    h2 = lay(T._norm(cfg, p.ln2, mid))
     b, s, d = h2.shape
     y, aux = moe_apply(p.moe, h2.reshape(b * s, d), cfg, routing)
     return mid + y.reshape(b, s, d), aux, kv_out
 
 
 def _train_block(cfg: MoEConfig, p: MoEBlock, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, sharded: bool):
     """One layer of training: ``blocked_attention`` (K4 has no
     backward); returns (x, aux)."""
-    y, aux, _ = _moe_block(cfg, p, x, positions, impl="plain")
+    y, aux, _ = _moe_block(cfg, p, x, positions, impl="plain",
+                           sharded=sharded)
     return y, aux
 
 
@@ -458,13 +461,15 @@ def moe_train_forward(cfg: MoEConfig, params: T.LM, batch, *,
     positions = T._positions(tokens)
     x = T._lookup(cfg, params, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    sharded = is_dtensor(x)
     for p in params.blocks:
-        x = T._constrain_act(cfg, x)
+        if sharded:
+            x = T._constrain_act(cfg, x)
         if cfg.remat:
-            x, aux = checkpoint(_train_block, cfg, p, x, positions,
+            x, aux = checkpoint(_train_block, cfg, p, x, positions, sharded,
                                 use_reentrant=False)
         else:
-            x, aux = _train_block(cfg, p, x, positions)
+            x, aux = _train_block(cfg, p, x, positions, sharded)
         aux_total = aux_total + aux
     loss = T.chunked_ce(cfg, params, x, labels)
     return loss + aux_total / cfg.n_layers
@@ -477,9 +482,9 @@ def moe_prefill(cfg: MoEConfig, params: T.LM, tokens, *,
     """tokens [B,S] -> (last-token logits [B,V] f32, cache (k, v)
     [L,B,Hkv,S,dh]) (``moe.py:267-279``); K4 once per layer on the card.
     ``routing`` receives each layer's routing (:func:`moe_apply`)."""
-    def layer(cfg, p, x, positions, impl):
+    def layer(cfg, p, x, positions, impl, sharded):
         y, _, kv = _moe_block(cfg, p, x, positions, impl=impl,
-                              routing=routing)
+                              routing=routing, sharded=sharded)
         return y, kv
     return T._prefill(cfg, params, tokens, impl, device, layer)
 
@@ -490,7 +495,8 @@ def moe_decode_step(cfg: MoEConfig, params: T.LM, token, cache,
     """token [B,1] against the cache (k, v) [L,B,Hkv,Smax,dh] ->
     (logits [B,1,V] f32, cache), written in place at ``kv_len``
     (``moe.py:282-294``)."""
-    def layer(cfg, p, x, positions, kv, kv_len):
-        y, _, kv = _moe_block(cfg, p, x, positions, kv=kv, kv_len=kv_len)
+    def layer(cfg, p, x, positions, kv, kv_len, sharded):
+        y, _, kv = _moe_block(cfg, p, x, positions, kv=kv, kv_len=kv_len,
+                              sharded=sharded)
         return y, kv
     return T._decode(cfg, params, token, cache, kv_len, device, layer)

@@ -56,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ref import decode_ref
 from repro_torch.models import layers as L
-from repro_torch.models.mesh_compat import (constrain, dim_in, is_dtensor,
+from repro_torch.models.mesh_compat import (constrain, is_dtensor,
                                             replicate_as, serving,
                                             sharded_rows)
 
@@ -253,26 +253,24 @@ def _norm(cfg: LMConfig, p: L.Norm, x: torch.Tensor) -> torch.Tensor:
 
 def _attention(cfg: LMConfig, p: Attention, x: torch.Tensor,
                positions: torch.Tensor, kv=None, kv_len: int = 0,
-               impl: str = "kernel"):
+               impl: str = "kernel", sharded: bool = False):
     """x [B,S,d] (``transformer.py:111-138``).  kv: optional (k_cache,
     v_cache) [B,Hkv,Smax,dh] for decode, into which this call writes its
     K and V at ``kv_len``; returns (out [B,S,d], (k, v)): the K and V of
-    these tokens in prefill, the updated caches in decode."""
+    these tokens in prefill, the updated caches in decode.  ``sharded``:
+    x, the parameters and the caches are DTensors (see :func:`_block`)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    dp = cfg.dp_axes
-    q = _batch_only(cfg, L.dense(p.wq, x, dp)).reshape(b, s, h, dh) \
-        .transpose(1, 2)
-    k = _batch_only(cfg, L.dense(p.wk, x, dp)).reshape(b, s, hkv, dh) \
-        .transpose(1, 2)
-    v = _batch_only(cfg, L.dense(p.wv, x, dp)).reshape(b, s, hkv, dh) \
-        .transpose(1, 2)
+    lay, dp = _layout(cfg, sharded)
+    q = lay(L.dense(p.wq, x, dp)).reshape(b, s, h, dh).transpose(1, 2)
+    k = lay(L.dense(p.wk, x, dp)).reshape(b, s, hkv, dh).transpose(1, 2)
+    v = lay(L.dense(p.wv, x, dp)).reshape(b, s, hkv, dh).transpose(1, 2)
     q = L.rope(q, positions[:, None, :], cfg.rope_theta)
     k = L.rope(k, positions[:, None, :], cfg.rope_theta)
     if kv is None:
         o = L.gqa_attention(q, k, v, causal=True, window=cfg.window,
                             impl=impl, batch_axes=cfg.dp_axes)
-    elif is_dtensor(kv[0]):
+    elif sharded:
         o = _decode_attention(cfg, q, k, v, kv, kv_len)
         k, v = kv
     else:
@@ -282,7 +280,7 @@ def _attention(cfg: LMConfig, p: Attention, x: torch.Tensor,
         o = decode_ref(q, kc, vc, kv_len + s, window=cfg.window)
         k, v = kc, vc
     o = o.to(x.dtype)  # the cache's type may differ (an f32 cache)
-    o = _merge_heads(o)
+    o = _merge_heads(o, sharded)
     return L.dense(p.wo, o, dp), (k, v)
 
 
@@ -301,7 +299,7 @@ def _batch_only(cfg: LMConfig, t: torch.Tensor) -> torch.Tensor:
         return t
     from torch.distributed.tensor import Replicate, Shard
     mesh = t.device_mesh
-    dp = [dim_in(n, cfg.dp_axes) for n in mesh.mesh_dim_names]
+    dp = [n in cfg.dp_axes for n in mesh.mesh_dim_names]
     ranks = 1
     for i, d in enumerate(dp):
         ranks *= mesh.size(i) if d else 1
@@ -312,13 +310,26 @@ def _batch_only(cfg: LMConfig, t: torch.Tensor) -> torch.Tensor:
     return t if list(t.placements) == pl else t.redistribute(mesh, pl)
 
 
-def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+def _as_is(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _layout(cfg: LMConfig, sharded: bool):
+    """(the layout a block's tensors are brought to, the axes its weights
+    are gathered over): :func:`_batch_only` and ``cfg.dp_axes`` when the
+    block runs on DTensors, else nothing to do."""
+    if sharded:
+        return (lambda t: _batch_only(cfg, t)), cfg.dp_axes
+    return _as_is, ()
+
+
+def _merge_heads(o: torch.Tensor, sharded: bool) -> torch.Tensor:
     """[B,H,S,dh] -> [B,S,H*dh].  A DTensor (batch-sharded, heads whole)
     is merged inside ``local_map``, whose backward brings the gradient
     back to these placements before the split into heads: DTensor
     cannot split a dimension sharded 16 ways into 36 heads."""
     b, h, s, dh = o.shape
-    if not is_dtensor(o):
+    if not sharded:
         return o.transpose(1, 2).reshape(b, s, h * dh)
     from torch.distributed.tensor.experimental import local_map
     pl = tuple(o.placements)
@@ -363,31 +374,33 @@ def _decode_attention(cfg: LMConfig, q, k, v, kv, kv_len: int):
 
 
 def _block(cfg: LMConfig, p: Block, x: torch.Tensor, positions, kv=None,
-           kv_len: int = 0, impl: str = "kernel"):
+           kv_len: int = 0, impl: str = "kernel", sharded: bool = False):
     """One layer of prefill or decode (the bodies of ``transformer.py``'s
-    scans): returns (x, (k, v))."""
+    scans): returns (x, (k, v)).  ``sharded`` says that the layer runs
+    on DTensors: each entry point asks once (``is_dtensor`` of its
+    embedded tokens) and passes the answer down."""
     # under a mesh the block runs in the batch layout: the carry is
     # gathered over the sequence, and each row-parallel product's partial
     # sums are reduced into that layout, so that every residual add and
     # its gradient are batch-sharded too
-    x = _batch_only(cfg, x)
-    h = _batch_only(cfg, _norm(cfg, p.ln1, x))
-    a, kv_out = _attention(cfg, p.attn, h, positions, kv, kv_len, impl)
-    a = _batch_only(cfg, a)
+    lay, dp = _layout(cfg, sharded)
+    x = lay(x)
+    h = lay(_norm(cfg, p.ln1, x))
+    a, kv_out = _attention(cfg, p.attn, h, positions, kv, kv_len, impl,
+                           sharded)
+    a = lay(a)
     if cfg.parallel_block:
-        return x + a + _batch_only(cfg, L.mlp(p.mlp, h, cfg.act,
-                                              cfg.dp_axes)), kv_out
+        return x + a + lay(L.mlp(p.mlp, h, cfg.act, dp)), kv_out
     mid = x + a
-    return mid + _batch_only(cfg, L.mlp(
-        p.mlp, _batch_only(cfg, _norm(cfg, p.ln2, mid)), cfg.act,
-        cfg.dp_axes)), kv_out
+    return mid + lay(L.mlp(p.mlp, lay(_norm(cfg, p.ln2, mid)), cfg.act,
+                           dp)), kv_out
 
 
 def _train_block(cfg: LMConfig, p: Block, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, sharded: bool) -> torch.Tensor:
     """One layer of the training forward: ``blocked_attention``, never
     K4, whose kernel has no backward."""
-    return _block(cfg, p, x, positions, impl="plain")[0]
+    return _block(cfg, p, x, positions, impl="plain", sharded=sharded)[0]
 
 
 def _constrain_act(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
@@ -406,13 +419,15 @@ def _stack(cfg: LMConfig, params: LM, x: torch.Tensor,
     ``cfg.remat`` each block keeps only its input for the backward and
     is recomputed there (the reference's ``nothing_saveable`` policy).
     Under a mesh the carry enters each layer sequence-sharded."""
+    sharded = is_dtensor(x)
     for p in params.blocks:
-        x = _constrain_act(cfg, x)
+        if sharded:
+            x = _constrain_act(cfg, x)
         if cfg.remat:
-            x = checkpoint(_train_block, cfg, p, x, positions,
+            x = checkpoint(_train_block, cfg, p, x, positions, sharded,
                            use_reentrant=False)
         else:
-            x = _train_block(cfg, p, x, positions)
+            x = _train_block(cfg, p, x, positions, sharded)
     return x
 
 
@@ -544,8 +559,8 @@ def prefill(cfg: LMConfig, params: LM, tokens, *, impl: str = "kernel",
 def _prefill(cfg: LMConfig, params: LM, tokens, impl: str, device,
              layer: Callable):
     """The causal stack of :func:`prefill`, each layer run by ``layer(cfg,
-    p, x, positions, impl=impl) -> (x, (k, v))``: ``_block`` here, the
-    MoE block in ``models.moe``."""
+    p, x, positions, impl=impl, sharded=) -> (x, (k, v))``: ``_block``
+    here, the MoE block in ``models.moe``."""
     tokens = _on(params, tokens, device)
     b, s = tokens.shape
     positions = _positions(tokens)
@@ -553,7 +568,7 @@ def _prefill(cfg: LMConfig, params: LM, tokens, impl: str, device,
     if is_dtensor(x):       # DTensors are stacked, not written into
         kvs = []
         for p in params.blocks:
-            x, kv = layer(cfg, p, x, positions, impl=impl)
+            x, kv = layer(cfg, p, x, positions, impl=impl, sharded=True)
             kvs.append(kv)
         return (_logits(cfg, params, x[:, -1:, :])[:, 0],
                 (torch.stack([k for k, _ in kvs]),
@@ -562,7 +577,8 @@ def _prefill(cfg: LMConfig, params: LM, tokens, impl: str, device,
     ks = torch.empty(shape, dtype=x.dtype, device=x.device)
     vs = torch.empty_like(ks)
     for i, p in enumerate(params.blocks):
-        x, (ks[i], vs[i]) = layer(cfg, p, x, positions, impl=impl)
+        x, (ks[i], vs[i]) = layer(cfg, p, x, positions, impl=impl,
+                                  sharded=False)
     return _logits(cfg, params, x[:, -1:, :])[:, 0], (ks, vs)
 
 
@@ -579,7 +595,8 @@ def decode_step(cfg: LMConfig, params: LM, token, cache, kv_len: int, *,
 def _decode(cfg: LMConfig, params: LM, token, cache, kv_len: int, device,
             layer: Callable):
     """One token through the stack against the cache, each layer run by
-    ``layer(cfg, p, x, positions, kv=, kv_len=) -> (x, cache)``."""
+    ``layer(cfg, p, x, positions, kv=, kv_len=, sharded=) -> (x,
+    cache)``."""
     token = _on(params, token, device)
     kc, vc = cache
     kv_len = int(kv_len)
@@ -590,6 +607,8 @@ def _decode(cfg: LMConfig, params: LM, token, cache, kv_len: int, device,
     positions = replicate_as(torch.full((b, 1), kv_len, dtype=torch.int64,
                                         device=token.device), token)
     x = _lookup(cfg, params, token)
+    sharded = is_dtensor(x)
     for i, p in enumerate(params.blocks):
-        x, _ = layer(cfg, p, x, positions, kv=(kc[i], vc[i]), kv_len=kv_len)
+        x, _ = layer(cfg, p, x, positions, kv=(kc[i], vc[i]), kv_len=kv_len,
+                     sharded=sharded)
     return _logits(cfg, params, x), (kc, vc)

@@ -88,18 +88,22 @@ class ElasticMesh:
     def __init__(self, model_parallel: int):
         self.model_parallel = model_parallel
 
-    def build(self, ranks=None, device_type: str = "cuda"):
+    def build(self, ranks=None):
         """A ``DeviceMesh`` over the first ``dp * model_parallel`` of
-        ``ranks`` (default: every rank of the initialised group)."""
+        ``ranks`` (default: every rank of the initialised group), on the
+        card under an NCCL group and on the CPU under any other."""
         import torch
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.launch.mesh import mesh_device_type
         if ranks is None:
             ranks = list(range(dist.get_world_size()))
         mp = self.model_parallel
         dp = max(1, len(ranks) // mp)
         grid = torch.tensor(list(ranks)[:dp * mp]).reshape(dp, mp)
-        return DeviceMesh(device_type, grid, mesh_dim_names=("data", "model"))
+        return DeviceMesh(mesh_device_type(), grid,
+                          mesh_dim_names=("data", "model"))
 
     def reshard(self, state, mesh, spec_tree):
         """``state`` (a module, or a mapping of tensors, nested mappings

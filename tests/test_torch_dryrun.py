@@ -4,6 +4,8 @@ a subprocess (its fake 256-rank group is process-global), the
 4-rank gloo group (a 2 x 2 mesh, which the reference's tests cannot
 run on one host device) holding a sharded train step and a sharded MoE
 prefill against the unsharded ones."""
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,6 +58,161 @@ def test_dryrun_single_cell_subprocess(tmp_path):
 # ---------------------------------------------------------------------------
 # a fake group in this process
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _fake_world(n):
+    """A fake group of ``n`` ranks inside the block; a group that was
+    there before it is made again after it (at its own size)."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import ensure_fake_group
+    before = dist.get_world_size() if dist.is_initialized() else None
+    ensure_fake_group(n)
+    try:
+        yield n
+    finally:
+        if before is None:
+            dist.destroy_process_group()
+        else:
+            ensure_fake_group(before)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_is_the_references(multi_pod):
+    """16 x 16 ``("data", "model")`` on 256 ranks, 2 x 16 x 16 ``("pod",
+    "data", "model")`` on 512, as ``repro.launch.mesh`` builds them; a
+    spec over dp and tp leaves each rank its block; a group of the other
+    size is refused."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import P, axes_for_mesh, to_placements
+    from repro_torch.launch.mesh import make_production_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    with _fake_world(int(np.prod(shape))):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        assert tuple(mesh.shape) == shape
+        assert mesh.mesh_dim_names == (("pod", "data", "model") if multi_pod
+                                       else ("data", "model"))
+        assert mesh.device_type == "cpu"
+        ax = axes_for_mesh(mesh)
+        assert ax.dp == (("pod", "data") if multi_pod else ("data",))
+        assert ax.tp == "model" and ax.dp_size == (32 if multi_pod else 16)
+        w = distribute_tensor(torch.empty(64, 32, device="meta"), mesh,
+                              to_placements(P(ax.dp, ax.tp), mesh))
+        assert tuple(w.to_local().shape) == (64 // ax.dp_size, 2)
+        with pytest.raises(ValueError, match="ranks"):
+            make_production_mesh(multi_pod=not multi_pod)
+
+
+@pytest.fixture(scope="module")
+def traced_train_cell():
+    """A reduced starcoder2-7b train cell (8 x 64 tokens in 2
+    microbatches, meta tensors) on a fake 2 x 2 mesh, its step run under
+    ``RankTrace`` and under each of the torch tools it stands in for.
+    DTensor's sharding propagation runs ops on fake tensors of the
+    global shapes, which a mode below DTensor sees; a first run fills
+    its cache, so that the later runs issue only each rank's own ops.
+    ``FlopCounterMode`` and ``MemTracker`` run under a mode that lets
+    DTensor unwrap first, so they too count rank 0's local ops;
+    ``CommDebugMode`` does so itself, and a subclass adds each counted
+    collective's result bytes."""
+    import collections
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import (axes_for_mesh, distribute_params,
+                                          distribute_tree, lm_param_sharding,
+                                          lm_train_cell)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.dryrun import COLLECTIVE_KINDS, RankTrace
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.mesh_compat import use_mesh
+    from repro_torch.models.transformer import (abstract_lm_params,
+                                                train_forward)
+    from repro_torch.optim.adamw import adamw_init
+
+    class LocalOps(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    class CommBytes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.nbytes = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n = sum(self.comm_counts.values())
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if sum(self.comm_counts.values()) > n:
+                self.nbytes[COLLECTIVE_KINDS[func._overloadpacket.__name__]] \
+                    += sum(t.numel() * t.element_size()
+                           for t in (out if isinstance(out, (list, tuple))
+                                     else [out]))
+            return out
+
+    with _fake_world(4):
+        mesh = make_local_mesh(n_model=2)
+        ax = axes_for_mesh(mesh)
+        cfg = dataclasses.replace(
+            get_arch("starcoder2-7b").reduced_cfg, dp_axes=tuple(ax.dp),
+            tp_axis=ax.tp, sp_axis=ax.tp)
+        cell = lm_train_cell(cfg, "train", 8, 64, train_forward,
+                             microbatches=2)
+        params = abstract_lm_params(cfg)
+        distribute_params(params, mesh, lm_param_sharding(cfg, ax))
+        opt = adamw_init(params)
+        inputs = distribute_tree(cell.input_specs(), mesh,
+                                 cell.input_sharding(ax))
+        step = cell.make_step(torch.device("meta"))
+
+        def run(*modes):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(use_mesh(mesh))
+                for m in modes:
+                    stack.enter_context(m)
+                step(params, opt, inputs)
+
+        run()
+        rt, fc, cm, mt = (RankTrace(), FlopCounterMode(display=False),
+                          CommBytes(), MemTracker())
+        run(rt)
+        run(fc, LocalOps())
+        run(cm)
+        run(mt, LocalOps())
+    peaks = mt.get_tracker_snapshot("peak")
+    return dict(
+        rank_trace=dict(flops=rt.flops, peak=rt.peak_bytes,
+                        collectives=rt.collectives),
+        flops=fc.get_total_flops(),
+        collectives={COLLECTIVE_KINDS[k.__name__]: {
+            "count": v, "bytes": cm.nbytes[COLLECTIVE_KINDS[k.__name__]]}
+            for k, v in cm.comm_counts.items()},
+        peak_meta=peaks[torch.device("meta")]["Total"],
+        peak_all=sum(v["Total"] for v in peaks.values()))
+
+
+@pytest.mark.parametrize("tool", ["FlopCounterMode", "CommDebugMode",
+                                  "MemTracker"])
+def test_rank_trace_counts_as_the_torch_tools(traced_train_cell, tool):
+    """``RankTrace``'s per-rank FLOPs equal ``FlopCounterMode``'s, its
+    collectives per kind (count and result bytes) ``CommDebugMode``'s,
+    and its peak lies between ``MemTracker``'s peak on the meta device
+    (where the step's tensors live) and its peak summed over devices."""
+    got = traced_train_cell["rank_trace"]
+    if tool == "FlopCounterMode":
+        assert got["flops"] > 0
+        assert got["flops"] == traced_train_cell["flops"]
+    elif tool == "CommDebugMode":
+        assert set(got["collectives"]) == {"all-gather", "all-reduce",
+                                           "reduce-scatter"}
+        assert got["collectives"] == traced_train_cell["collectives"]
+    else:
+        assert traced_train_cell["peak_meta"] > 0
+        assert traced_train_cell["peak_meta"] <= got["peak"] \
+            <= traced_train_cell["peak_all"]
+
+
 @pytest.fixture(scope="module")
 def fake24():
     import torch.distributed as dist
@@ -68,11 +225,11 @@ def fake24():
 def test_elastic_mesh_keeps_the_model_axis(fake24):
     from repro_torch.train.fault_tolerance import ElasticMesh
     em = ElasticMesh(model_parallel=8)
-    mesh = em.build(device_type="cpu")
+    mesh = em.build()
     assert tuple(mesh.shape) == (3, 8)
     assert mesh.mesh_dim_names == ("data", "model")
     # lose a quarter of the ranks: the data axis shrinks, model stays
-    small = em.build(list(range(20)), device_type="cpu")
+    small = em.build(list(range(20)))
     assert tuple(small.shape) == (2, 8)
 
 
@@ -80,7 +237,7 @@ def test_elastic_mesh_data_axis_takes_every_rank(fake24):
     """``test_train.py``'s first case: model_parallel=1 -> the data
     axis is every rank."""
     from repro_torch.train.fault_tolerance import ElasticMesh
-    mesh = ElasticMesh(model_parallel=1).build(device_type="cpu")
+    mesh = ElasticMesh(model_parallel=1).build()
     assert tuple(mesh.shape) == (fake24, 1)
 
 
@@ -98,7 +255,7 @@ def test_elastic_reshard_roundtrip(fake24):
     from repro_torch.configs.base import P
     from repro_torch.train.fault_tolerance import ElasticMesh
     em = ElasticMesh(model_parallel=8)
-    mesh = em.build(device_type="cpu")
+    mesh = em.build()
     t = _tree()
     t2 = em.reshard(t, mesh, None)
     np.testing.assert_array_equal(t2["a"].to_local().numpy(),
@@ -124,7 +281,7 @@ def test_restore_reshards_onto_another_mesh(fake24, tmp_path):
     from repro_torch.train.fault_tolerance import ElasticMesh
     t = _tree(1)
     save_checkpoint(tmp_path, 3, t)
-    mesh = ElasticMesh(model_parallel=8).build(device_type="cpu")
+    mesh = ElasticMesh(model_parallel=8).build()
     like = {"a": torch.zeros(8, 16),
             "b": {"w": torch.zeros(10, dtype=torch.int32),
                   "s": torch.tensor(0.0)}}
@@ -165,7 +322,7 @@ _GLOO = textwrap.dedent('''
         from repro_torch.models import moe as M, transformer as T
         from repro_torch.models.mesh_compat import use_mesh
         from repro_torch.optim.adamw import adamw_init
-        mesh = make_local_mesh(n_model=2, device_type="cpu")
+        mesh = make_local_mesh(n_model=2)
         ax = axes_for_mesh(mesh)
         res = {}
 

@@ -184,8 +184,8 @@ class _Dims:
     (P(None, ("pod", "data"), "model"), ("pod", "data", "model"),
      "S1 S1 S2"),
     (P(("pod", "data", "model")), ("pod", "data", "model"), "S0 S0 S0"),
-    (P(None, ("pod", "data")), ("pod+data", "model"), "S1 R"),
-    (P(("pod", "data", "model"), None), ("pod+data", "model"), "S0 S0"),
+    (P(None, ("pod", "data")), ("pod", "data", "model"), "S1 S1 R"),
+    (P("model", ("pod", "data")), ("pod", "data", "model"), "S1 S1 S0"),
     (P(), ("data", "model"), "R R"),
     (None, ("data", "model"), "R R"),
 ])
@@ -200,7 +200,7 @@ def test_to_placements(spec, names, want):
     (P(("data", "pod")), ("pod", "data", "model")),   # out of mesh order
     (P("data", "data"), ("data", "model")),           # an axis twice
     (P("expert"), ("data", "model")),                 # not the mesh's
-    (P("pod"), ("pod+data", "model")),                # half a flat dim
+    (P("pod", "pod"), ("pod", "data", "model")),      # on two dims
 ])
 def test_to_placements_refuses(spec, names):
     with pytest.raises(ValueError):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Serve the capped MLPerf DLRM with the port of several checkouts, in
-turns, on one card.
+"""Serve the capped MLPerf DLRM and starcoder2-7b with the port of
+several checkouts, in turns, on one card.
 
     python3 tools/serve_ab.py [--out FILE] DIR [DIR ...]
 
@@ -10,11 +10,14 @@ script is in runs as ``cur``.  A run is one process that imports its
 checkout's ``chip_smoke`` and calls its phase 5, ``dlrm_phase``: the same
 model, requests, seeds and timing in every checkout that has that phase,
 each through its own port and its own kernels (built into its own
-``build/kernels``).  Runs go in the order cur, DIR..., DIR... reversed,
-cur, and each prints its own lines.  At the end, every run's median
-request time and median host issue time per cell, and its
-``max_memory_allocated``, are printed, and with ``--out`` written as
-JSON.  Needs CUDA and ``nvcc``.
+``build/kernels``); then phase 7's starcoder2-7b serve at full config
+(``lm_demo.serve`` at the checkout's ``LM_SERVE``, weights from
+``LM_SEED``: one prefill, then decode).  Runs go in the order cur,
+DIR..., DIR... reversed, cur, and each prints its own lines.  At the
+end, every run's median request time and median host issue time per
+DLRM cell, its ``max_memory_allocated``, and the LM's prefill ms and
+decode ms per token are printed, and with ``--out`` written as JSON.
+Needs CUDA and ``nvcc``.
 """
 import argparse
 import json
@@ -31,8 +34,18 @@ sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke
 torch.cuda.init()
-record = chip_smoke.dlrm_phase(torch.device("cuda", 0))[0]
+dev = torch.device("cuda", 0)
+record = chip_smoke.dlrm_phase(dev)[0]
 record.pop("profiles", None)
+torch.cuda.empty_cache()
+from repro_torch.configs import starcoder2_7b
+from repro_torch.launch.lm_demo import serve
+from repro_torch.models.transformer import init_lm
+cfg = starcoder2_7b.CFG
+params = init_lm(cfg, torch.Generator(dev).manual_seed(chip_smoke.LM_SEED),
+                 dev)
+served = serve(cfg, params, device=dev, **chip_smoke.LM_SERVE)
+record["lm"] = {k: served[k] for k in ("prefill_ms", "decode_ms_per_token")}
 with open(sys.argv[2], "w") as f:
     json.dump(record, f)
 """
@@ -65,8 +78,11 @@ def main() -> int:
             f"{cell} median_ms={c['median_ms']:.4f} "
             f"median_host_issue_ms={c['median_host_issue_ms']:.4f}"
             for cell, c in record["cells"].items())
+        lm = record["lm"]
         print(f"run {run['run']} {run['name']}: {cells} "
-              f"max_memory_allocated={record['max_memory_allocated']}")
+              f"max_memory_allocated={record['max_memory_allocated']} "
+              f"lm prefill_ms={lm['prefill_ms']:.4f} "
+              f"decode_ms_per_token={lm['decode_ms_per_token']:.4f}")
     if args.out:
         Path(args.out).write_text(json.dumps(runs, indent=1))
     return 0
