@@ -346,7 +346,33 @@ script exits non-zero:
    uncut records of ``results/torch/dryrun``; (f) the roofline row of
    ``benchmarks/run.py`` over those records and over the committed
    ones, at the H100's peaks.
-12. print the kernel table as one JSON line, then the last line
+12. the last names (after phase 11, so that nothing here touches what
+   phase 4h read): (a) ``graph_stats`` of the AMZ stand-in on the card,
+   equal to numpy on the host copy; (b) ``frontier_density`` of every
+   frontier (BFS level) of a BFS SD1 run on it, a float32 bit-equal to
+   numpy's float32 of the same counts; (c) after ``STATS.reset()``, SSSP
+   TG0 (K2's min over the CSC order) and PR SD0 (K1's owned sum), each
+   once on the host engine and once fused with the kernels and the
+   K1/K2 counts from 0: each run's share of ``STATS.dispatches`` equal
+   to its ``RunResult.dispatches`` (the host engine's iterations, the
+   fused engine's replays), the total equal to their sum, both kernels
+   launched, the states equal to plain fused runs' (SSSP exact, PR to
+   atol 1e-6); (d) ``gathered_segment_reduce`` on the card against
+   ``gathered_segment_reduce_ref`` (sum, min, max; float32 and int32;
+   ids out of range dropped): exact but for the float32 sum
+   (``GATHER_SUM_TOL``); (e) ``python -m repro_torch.benchmarks.run
+   --batch-only --batch-smoke`` and ``--resilience-only
+   --resilience-smoke`` with ``--out-dir build/last_names_smoke``: both
+   records ``smoke``, every batched state equal to its sequential run,
+   every checkpointed PR run within tolerance, and the tracked
+   ``results/torch/BENCH_batch.json`` and ``BENCH_resilience.json``
+   unchanged by the phase; (f) ``examples/lm_demo_torch.py --steps 20``
+   on the card: finite losses, one K4 launch per layer in its prefill,
+   the decoded ids and ms per token.  (e) and (f) run in their own
+   processes, started together at the phase's start (logs
+   ``batch_smoke.log``, ``resilience_smoke.log``, ``lm_demo_torch.log``
+   beside ``--out``).
+13. print the kernel table as one JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The full record also goes to ``--out``.
@@ -636,6 +662,23 @@ GATEWAY_CHURN_GRAPHS = dict(count=48, scale=14, edge_factor=8, seed=11)
 GATEWAY_AMZ_BATCH = 4
 GATEWAY_AMZ_CELLS = [("BFS", "SD1"), ("PR", "TG0")]
 GATEWAY_AMZ_REQUESTS = 4
+
+# phase 12, the last names
+#: the STATS cells: K2's min over the CSC pull order, K1's owned sum
+LAST_STATS_CELLS = [("SSSP", "TG0"), ("PR", "SD0")]
+#: the BFS run whose frontiers ``frontier_density`` reads
+LAST_BFS_CONFIG = "SD1"
+#: ``gathered_segment_reduce`` on the card: slots, segments (16 slots a
+#: segment), ids drawn from [-2, segments + 2): the out-of-range ones
+#: are dropped
+GATHER_CASE = dict(n=65_536, segments=4_096, seed=12)
+#: the float32 sum of ~16 N(0, 1) values a segment, added by the card's
+#: atomics in a run-dependent order against numpy's one slot at a time:
+#: each partial sum rounds by at most 2**-24 of its size (< 8 here), so
+#: the two differ by a few 1e-6; min, max and int32 are exact
+GATHER_SUM_TOL = dict(rtol=1e-5, atol=1e-5)
+LM_DEMO_STEPS = 20
+
 #: phase 4h: Fig. 5 at Table II's own sizes, and section (a) of Table II
 #: as the reference's ``benchmarks/table2.py`` computes it from the
 #: published statistics (published; computed from published)
@@ -3592,26 +3635,45 @@ def resilience_phase(graph, dev) -> tuple:
     return record, launches, device_launches
 
 
-def _bench_subprocess(module: str, args: list, log_path: Path) -> float:
-    """``python -m module args`` from the checkout's root with
-    ``PYTHONHASHSEED`` fixed, its output to ``log_path``; fails unless it
-    exits 0 within BENCH_TIMEOUT_S.  Returns its seconds."""
+def _launch(argv: list, log_path: Path) -> tuple:
+    """Start ``argv`` from the checkout's root with ``PYTHONHASHSEED``
+    fixed and ``src`` on the path, its output to ``log_path``."""
     env = dict(os.environ, PYTHONHASHSEED=HASH_SEED)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]]
                                if env.get("PYTHONPATH") else []))
-    t0 = time.perf_counter()
-    with open(log_path, "w") as fh:
-        proc = subprocess.run([sys.executable, "-m", module, *args],
-                              cwd=ROOT, env=env, stdout=fh,
-                              stderr=subprocess.STDOUT,
-                              timeout=BENCH_TIMEOUT_S)
+    fh = open(log_path, "w")
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=fh,
+                            stderr=subprocess.STDOUT)
+    return proc, fh, time.perf_counter()
+
+
+def _wait(what: str, started: tuple, log_path: Path) -> float:
+    """Wait for a process :func:`_launch` started; fails unless it exits 0
+    within BENCH_TIMEOUT_S (killed if it does not).  Returns its
+    seconds."""
+    proc, fh, t0 = started
+    try:
+        rc = proc.wait(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{what}: no exit in {BENCH_TIMEOUT_S} s")
+    finally:
+        fh.close()
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{module} exited {proc.returncode}:\n"
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}:\n"
                              + log_path.read_text()[-4000:])
-    log(f"{module}: exit 0 in {seconds:.1f} s (log {log_path})")
+    log(f"{what}: exit 0 in {seconds:.1f} s (log {log_path})")
     return seconds
+
+
+def _bench_subprocess(module: str, args: list, log_path: Path) -> float:
+    """``python -m module args`` as :func:`_launch` starts it, waited
+    for as :func:`_wait` does.  Returns its seconds."""
+    return _wait(module, _launch([sys.executable, "-m", module, *args],
+                                 log_path), log_path)
 
 
 def _kernel_order(config_name: str) -> bool:
@@ -4355,6 +4417,207 @@ def harness_phase(card: str, log_dir: Path) -> tuple:
     return record, launches
 
 
+def _stats_runs(graph, dev) -> dict:
+    """Phase 12 (c): after ``STATS.reset()``, each STATS cell once on the
+    host engine and once fused with the kernels; each run's share of
+    ``STATS.dispatches`` against its ``RunResult``, then the states
+    against plain fused runs.  The K1/K2 counts are set to 0 first."""
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.core import STATS, SystemConfig, run
+    from repro_torch.core.capture import STEPS_PER_LAUNCH
+    _zero_seg_counts()
+    STATS.reset()
+    runs, results, total = [], {}, 0
+    for app, cfg in LAST_STATS_CELLS:
+        for engine in ("host", "fused"):
+            before = STATS.dispatches
+            res = run(REGISTRY[app](), graph, SystemConfig.from_name(cfg),
+                      use_kernels=True, engine=engine, device=dev)
+            share = STATS.dispatches - before
+            want = res.iterations if engine == "host" else \
+                -(-res.iterations // STEPS_PER_LAUNCH)
+            if not res.converged or share != res.dispatches or \
+                    share != want:
+                raise AssertionError(
+                    f"STATS {app} {cfg} {engine}: {share} dispatches "
+                    f"counted, RunResult {res.dispatches}, expected "
+                    f"{want} for {res.iterations} iterations")
+            total += res.dispatches
+            results[app, cfg, engine] = res
+            runs.append(dict(app=app, config=cfg, engine=engine,
+                             iterations=res.iterations, stats=share,
+                             dispatches=res.dispatches))
+    launches = _seg_counts()
+    log(f"last names (c): STATS {STATS.dispatches} dispatches = the runs' "
+        f"{total}; {json.dumps(runs)}; K1/K2 launches {json.dumps(launches)}")
+    if STATS.dispatches != total or min(launches.values()) <= 0:
+        raise AssertionError(f"STATS {STATS.dispatches} != {total}, or a "
+                             f"kernel never launched: {launches}")
+    for app, cfg in LAST_STATS_CELLS:
+        plain = run(REGISTRY[app](), graph, SystemConfig.from_name(cfg),
+                    use_kernels=False, device=dev)
+        for engine in ("host", "fused"):
+            _same_run(app, f"{cfg} {engine} with the kernels against plain",
+                      results[app, cfg, engine], plain)
+    return dict(runs=runs, dispatches=total, launches=launches)
+
+
+def _gathered_checks(dev) -> list:
+    """Phase 12 (d): ``gathered_segment_reduce`` on the card against its
+    numpy oracle, sum, min and max over float32 and int32 values."""
+    from repro_torch.kernels.segment_reduce import (
+        gathered_segment_reduce, gathered_segment_reduce_ref)
+    c = GATHER_CASE
+    rng = np.random.default_rng(c["seed"])
+    ids = rng.integers(-2, c["segments"] + 2, c["n"]).astype(np.int32)
+    values = {"float32": rng.standard_normal(c["n"]).astype(np.float32),
+              "int32": rng.integers(-1000, 1000, c["n"]).astype(np.int32)}
+    rows = []
+    for dtype, vals in values.items():
+        for kind in ("sum", "min", "max"):
+            got = gathered_segment_reduce(
+                torch.from_numpy(vals).to(dev), torch.from_numpy(ids).to(dev),
+                c["segments"], kind).cpu().numpy()
+            want = gathered_segment_reduce_ref(vals, ids, c["segments"], kind)
+            exact = not (dtype == "float32" and kind == "sum")
+            ok = (np.array_equal(got, want) if exact else
+                  np.allclose(got, want, **GATHER_SUM_TOL))
+            err = float(np.max(np.abs(got.astype(np.float64) - want)))
+            rows.append(dict(dtype=dtype, kind=kind, max_abs_err=err,
+                             exact=exact))
+            if got.dtype != want.dtype or not ok:
+                raise AssertionError(f"gathered {dtype} {kind}: max abs err "
+                                     f"{err}, dtype {got.dtype}")
+    log(f"last names (d): gathered_segment_reduce {c} equal to its oracle "
+        f"{json.dumps(rows)}")
+    return rows
+
+
+def _smoke_records(smoke_dir: Path) -> dict:
+    """Phase 12 (e): the two smoke records: ``smoke`` true, every
+    identity field true."""
+    batch = json.loads((smoke_dir / "BENCH_batch.json").read_text())
+    res = json.loads((smoke_dir / "BENCH_resilience.json").read_text())
+    equal = [cell["equal_sequential"] for per_b in batch["configs"].values()
+             for cell in per_b.values()]
+    # PR's float sums are read to tolerance on the card
+    within = [c["within_tolerance"] for c in res["configs"].values()]
+    if not (batch.get("smoke") and res.get("smoke") and all(equal)
+            and all(within) and len(equal) == 18 * 2 and len(within) == 18):
+        raise AssertionError(f"smoke records: batch smoke "
+                             f"{batch.get('smoke')} equal {equal}; "
+                             f"resilience smoke {res.get('smoke')} within "
+                             f"{within}")
+    return dict(batch=batch["summary"], resilience=res["summary"],
+                batch_workload=batch["workload"],
+                resilience_workload=res["workload"])
+
+
+def last_names_phase(dev, log_dir: Path) -> tuple:
+    """Phase 12: the names the port gained last.  Returns (record, K1/K2
+    launches of (c), K4 launches of the demo's prefill)."""
+    import math
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.core import SystemConfig, frontier_density, run
+    from repro_torch.graph import graph_stats, powerlaw_graph
+    from repro_torch.graph.structure import host_array
+    tracked = [ROOT / "results" / "torch" / f"BENCH_{n}.json"
+               for n in ("batch", "resilience")]
+    before = [p.read_bytes() for p in tracked]
+    smoke_dir = ROOT / "build" / "last_names_smoke"
+    # (e) and (f) run in their own processes, beside (a)-(d)
+    started = {
+        "batch smoke": (_launch([
+            sys.executable, "-m", "repro_torch.benchmarks.run",
+            "--batch-only", "--batch-smoke", "--out-dir", str(smoke_dir)],
+            log_dir / "batch_smoke.log"), log_dir / "batch_smoke.log"),
+        "resilience smoke": (_launch([
+            sys.executable, "-m", "repro_torch.benchmarks.run",
+            "--resilience-only", "--resilience-smoke", "--out-dir",
+            str(smoke_dir)], log_dir / "resilience_smoke.log"),
+            log_dir / "resilience_smoke.log"),
+        "examples/lm_demo_torch.py": (_launch([
+            sys.executable, "examples/lm_demo_torch.py", "--steps",
+            str(LM_DEMO_STEPS)], log_dir / "lm_demo_torch.log"),
+            log_dir / "lm_demo_torch.log"),
+    }
+    record = {}
+    try:
+        graph = powerlaw_graph(**AMZ)
+        gdev = graph.to(dev)
+        # (a) graph_stats on the card against numpy on the host copy
+        deg = host_array(graph.out_degree)
+        want = dict(n_nodes=graph.n_nodes, n_edges=graph.n_edges,
+                    max_degree=int(deg.max()), avg_degree=float(deg.mean()),
+                    std_degree=float(deg.std()))
+        stats = graph_stats(gdev).as_dict
+        if stats != want:
+            raise AssertionError(f"graph_stats {stats} != numpy {want}")
+        record["graph_stats"] = stats
+        log(f"last names (a): graph_stats of the AMZ stand-in on the card "
+            f"{json.dumps(stats)}")
+
+        # (b) frontier_density over a BFS run's frontiers (one per level)
+        res = run(REGISTRY["BFS"](), graph,
+                  SystemConfig.from_name(LAST_BFS_CONFIG), device=dev)
+        depth = res.state["depth"]
+        depth_h = depth.cpu().numpy()
+        got, want = [], []
+        for level in range(int(depth_h.max()) + 1):
+            d = frontier_density(depth == level, gdev.out_degree,
+                                 graph.n_edges)
+            if d.dtype != torch.float32 or d.device != gdev.out_degree.device:
+                raise AssertionError(f"frontier_density: {d.dtype} on "
+                                     f"{d.device}")
+            m_f = np.int32(deg[depth_h == level].sum(dtype=np.int32))
+            got.append(np.float32(d.item()))
+            want.append(np.float32(m_f) / np.float32(max(graph.n_edges, 1)))
+        if np.asarray(got).view(np.uint32).tolist() != \
+                np.asarray(want).view(np.uint32).tolist():
+            raise AssertionError(f"frontier_density {got} != numpy {want}")
+        record["frontier_density"] = [float(x) for x in got]
+        log(f"last names (b): frontier_density of {len(got)} BFS "
+            f"{LAST_BFS_CONFIG} frontiers bit-equal to numpy float32: "
+            f"{[round(float(x), 6) for x in got]}")
+
+        # (c) STATS and K1/K2; (d) the gathered reduce and its oracle
+        record["stats"] = _stats_runs(graph, dev)
+        record["gathered"] = _gathered_checks(dev)
+        del graph, gdev, res, depth
+
+        # (e) the smoke harnesses; (f) the LM demo
+        seconds = {what: _wait(what, st, path)
+                   for what, (st, path) in started.items()}
+        started = {}
+    finally:
+        for (proc, fh, _), _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+    record["subprocess_seconds"] = seconds
+    record["smoke"] = _smoke_records(smoke_dir)
+    if [p.read_bytes() for p in tracked] != before:
+        raise AssertionError("a smoke run changed the tracked "
+                             f"{[p.name for p in tracked]}")
+    log(f"last names (e): smoke records {json.dumps(record['smoke'])}; "
+        f"results/torch/BENCH_batch.json and BENCH_resilience.json "
+        "unchanged")
+    demo = json.loads((log_dir / "lm_demo_torch.log").read_text()
+                      .strip().splitlines()[-1])
+    if not (demo["k4_launches"] == demo["n_layers"] and demo["loss_last"]
+            is not None and math.isfinite(demo["loss_last"])
+            and demo["device"].startswith("cuda")):
+        raise AssertionError(f"examples/lm_demo_torch.py: {demo}")
+    record["lm_demo"] = demo
+    log(f"last names (f): lm_demo_torch loss {demo['loss_first']:.4f} -> "
+        f"{demo['loss_last']:.4f} in {demo['steps']} steps, decoded "
+        f"{demo['token_ids']} at {demo['ms_per_token']:.2f} ms/token, "
+        f"{demo['k4_launches']} K4 launches in the prefill of "
+        f"{demo['n_layers']} layers")
+    return record, record["stats"]["launches"], demo["k4_launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "results" / "torch" /
@@ -4493,6 +4756,13 @@ def main() -> int:
     # 11. the sharding pieces: meshes, DTensor execution, the dry run
     sharding, shard_launches = sharding_phase(dev, out.parent)
     clock.lap("11 sharding")
+    free_device_memory()
+
+    # 12. the last names: graph_stats, frontier_density, STATS, the
+    # gathered oracle, the two smoke harnesses, examples/lm_demo_torch.py
+    names, names_launches, demo_launches = last_names_phase(dev,
+                                                            out.parent)
+    clock.lap("12 last names")
     for row in rows:
         row["launches"] = launches[row["kernel"]]
         if row["kernel"] == "flash_attention":
@@ -4500,10 +4770,12 @@ def main() -> int:
             row["command_r_launches"] = cr_launches
             row["moe_launches"] = moe_launches
             row["sharding_launches"] = shard_launches
+            row["lm_demo_torch_launches"] = demo_launches
             if "arch" in row:  # the MoE prefill shapes: that path's count
                 row["launches"] = moe_launches[row["arch"]]
             if attn_launches <= 0 or cr_launches <= 0 or \
-                    min(moe_launches.values()) <= 0 or shard_launches <= 0:
+                    min(moe_launches.values()) <= 0 or shard_launches <= 0 \
+                    or demo_launches <= 0:
                 raise AssertionError(f"{row['name']}: no launch on a path")
         if row["kernel"] in device_launches:
             row["device_launches"] = device_launches[row["kernel"]]
@@ -4520,6 +4792,7 @@ def main() -> int:
             row["gateway_launches"] = gw_launches[row["kernel"]]
             row["gateway_device_launches"] = gw_device[row["kernel"]]
             row["harness_launches"] = harness_launches[row["kernel"]]
+            row["last_names_launches"] = names_launches[row["kernel"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: no launch on its path")
 
@@ -4543,9 +4816,9 @@ def main() -> int:
                                    harness_launches=harness_launches,
                                    dlrm=dlrm, attention=attn, lm=lm,
                                    train=train, moe=moe, gnn=gnn,
-                                   sharding=sharding,
+                                   sharding=sharding, last_names=names,
                                    phase_seconds=clock.seconds), indent=1))
-    # 12. the kernel table, then the last line
+    # 13. the kernel table, then the last line
     log(json.dumps({"kernels": rows}))
     log(last)
     return 0

@@ -48,8 +48,9 @@ from repro_torch.benchmarks.dispatch import card
 from repro_torch.core import ALL_CONFIGS, EdgeContext, SystemConfig, run
 from repro_torch.device import resolve_device
 from repro_torch.graph import powerlaw_graph, regular_graph, rmat_graph
-from repro_torch.kernels.autotune import (_device_name, autotune_plan,
-                                          degree_features, degree_signature,
+from repro_torch.kernels.autotune import (ORDERS, _device_name,
+                                          autotune_plan, degree_features,
+                                          degree_signature,
                                           persist_tune_result, tune)
 
 __all__ = ["run_autotune", "PINNED_WORKLOADS", "SMOKE_WORKLOADS", "APP",
@@ -70,9 +71,6 @@ SMOKE_WORKLOADS = {
 }
 APP = "BFS"
 REPEATS = 5
-#: the edge orders the tuner serves; "gathered" is the sparse frontier
-#: path, whose only tunable is ``gather_splits``
-ORDERS = ("owned", "pull", "gathered")
 PLAN_FIELDS = ("tile_e", "block_mult", "block_div", "gather_splits")
 OUT = Path(__file__).resolve().parents[3] / "results" / "torch" / \
     "BENCH_autotune.json"

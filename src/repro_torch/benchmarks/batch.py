@@ -15,14 +15,20 @@ Per config and B it records
   captures, divided by B;
 - their ratio ``speedup``; the packed batches ``run_batch`` made (the
   graphs of one B fall in 1–3 padding buckets, one batch each) and
-  their launches (one poll each).
+  their launches (one poll each), and ``equal_sequential``: every
+  measured graph's batched state and iteration count equal its
+  sequential run's (BFS is exact).
 
-    python -m repro_torch.benchmarks.batch [--repeats N] [--out PATH]
+    python -m repro_torch.benchmarks.batch [--smoke] [--repeats N]
+        [--out PATH]
 
 writes ``results/torch/BENCH_batch.json`` with the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`` prints them.  It runs on the CUDA card unless
-``--device cpu`` is given.
+``--device cpu`` is given.  ``--smoke`` runs the reference's smoke
+workload (``SMOKE_WORKLOAD``, B in ``SMOKE_SIZES``, 2 repeats) into a
+record with ``"smoke": true`` under ``results/torch/smoke/``, never into
+the tracked record the perf gate reads.
 """
 from __future__ import annotations
 
@@ -34,19 +40,24 @@ from pathlib import Path
 import torch
 
 from repro_torch.algorithms import REGISTRY
+from repro_torch.benchmarks import smoke_out
 from repro_torch.benchmarks.dispatch import card
 from repro_torch.core import ALL_CONFIGS, bucket_key, capture, run, run_batch
 from repro_torch.device import resolve_device
 from repro_torch.graph import rmat_batch
 
-__all__ = ["PINNED_WORKLOAD", "APP", "SIZES", "REPEATS", "SEQ_SAMPLE", "OUT",
-           "run_batch_bench"]
+__all__ = ["PINNED_WORKLOAD", "SMOKE_WORKLOAD", "APP", "SIZES", "SMOKE_SIZES",
+           "REPEATS", "SMOKE_REPEATS", "SEQ_SAMPLE", "OUT", "run_batch_bench"]
 
 #: The pinned workload: change it and the trajectory restarts.
 PINNED_WORKLOAD = dict(scale=6, edge_factor=8, seed=7)
+#: The reference's smoke workload (``benchmarks/batch.py:45-48``).
+SMOKE_WORKLOAD = dict(scale=5, edge_factor=8, seed=7)
 APP = "BFS"
 SIZES = (1, 4, 16, 64)
+SMOKE_SIZES = (1, 4)
 REPEATS = 5
+SMOKE_REPEATS = 2
 #: Graphs with a sequential measurement of their own; the rest take the
 #: sample's mean.
 SEQ_SAMPLE = 16
@@ -59,21 +70,31 @@ def _geomean(xs) -> float:
     return math.exp(sum(math.log(x) for x in xs) / len(xs)) if xs else 1.0
 
 
-def run_batch_bench(out_path=OUT, repeats: int = REPEATS, sizes=SIZES,
-                    seq_sample: int = SEQ_SAMPLE, device=None) -> dict:
+def _equal(a, b) -> bool:
+    return a.iterations == b.iterations and all(
+        torch.equal(a.state[k], b.state[k]) for k in a.state)
+
+
+def run_batch_bench(out_path=OUT, repeats: int | None = None, sizes=None,
+                    seq_sample: int = SEQ_SAMPLE, device=None,
+                    smoke: bool = False) -> dict:
     """Run every cell and write the record to ``out_path`` (None: do not
-    write); returns the record."""
+    write; a smoke run never writes the tracked ``OUT``); returns the
+    record."""
     device = resolve_device(device)
+    if smoke:
+        out_path = smoke_out(out_path, OUT)
+    wl = SMOKE_WORKLOAD if smoke else PINNED_WORKLOAD
+    sizes = tuple(sizes or (SMOKE_SIZES if smoke else SIZES))
+    repeats = repeats or (SMOKE_REPEATS if smoke else REPEATS)
     program = REGISTRY[APP]()
-    sizes = tuple(sizes)
-    graphs = rmat_batch(max(sizes), weighted=program.weighted,
-                        **PINNED_WORKLOAD)
+    graphs = rmat_batch(max(sizes), weighted=program.weighted, **wl)
     n_meas = min(len(graphs), seq_sample)
     configs = {}
     for config in ALL_CONFIGS:
-        seq_best = []
+        seq_best, seq_runs = [], []
         for g in graphs[:n_meas]:
-            run(program, g, config, device=device)
+            seq_runs.append(run(program, g, config, device=device))
             seq_best.append(min(run(program, g, config, device=device).seconds
                                 for _ in range(repeats)))
         mean_seq = sum(seq_best) / len(seq_best)
@@ -105,6 +126,8 @@ def run_batch_bench(out_path=OUT, repeats: int = REPEATS, sizes=SIZES,
                 "batches": len(launches),
                 "batch_launches": sum(launches.values()),
                 "sequential_basis": basis,
+                "equal_sequential": all(
+                    _equal(r, s) for r, s in zip(rs, seq_runs)),
             }
         configs[config.name] = per_b
     geomean_by_b = {str(b): _geomean(c[str(b)]["speedup"]
@@ -115,9 +138,11 @@ def run_batch_bench(out_path=OUT, repeats: int = REPEATS, sizes=SIZES,
         "card": card(device),
         "device": str(device),
         "torch": torch.__version__,
-        "workload": {"generator": "rmat_batch", **PINNED_WORKLOAD,
+        "workload": {"generator": "rmat_batch", **wl,
                      "app": APP, "n_nodes": graphs[0].n_nodes,
                      "n_edges": graphs[0].n_edges},
+        # the key only on a smoke record: the tracked records have none
+        **({"smoke": True} if smoke else {}),
         "steps_per_launch": capture.STEPS_PER_LAUNCH,
         "repeats": repeats,
         "sizes": list(sizes),
@@ -143,17 +168,21 @@ def run_batch_bench(out_path=OUT, repeats: int = REPEATS, sizes=SIZES,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--repeats", type=int, default=REPEATS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the smoke workload, B in 1,4, 2 repeats, written "
+                         "under results/torch/smoke/")
+    ap.add_argument("--repeats", type=int, default=None)
     ap.add_argument("--sizes", default=None,
-                    help="comma-separated batch sizes (default 1,4,16,64)")
+                    help="comma-separated batch sizes (default 1,4,16,64; "
+                         "smoke 1,4)")
     ap.add_argument("--seq-sample", type=int, default=SEQ_SAMPLE)
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args()
     sizes = (tuple(int(s) for s in args.sizes.split(","))
-             if args.sizes else SIZES)
+             if args.sizes else None)
     run_batch_bench(args.out, args.repeats, sizes, args.seq_sample,
-                    args.device)
+                    args.device, smoke=args.smoke)
 
 
 if __name__ == "__main__":

@@ -50,6 +50,8 @@ import statistics
 import sys
 from pathlib import Path
 
+from repro_torch.benchmarks import RESULTS
+
 __all__ = ["extract_metrics", "fingerprint", "compare_artifact",
            "compare_dirs", "update_baselines", "median_baseline",
            "trip_rates", "ARTIFACTS",
@@ -67,7 +69,6 @@ ARTIFACTS = {
     "specialize": "BENCH_specialize.json",
 }
 DEFAULT_THRESHOLD = 0.20
-RESULTS = Path(__file__).resolve().parents[3] / "results" / "torch"
 BASELINES = RESULTS / "baselines"
 
 #: apps whose float SUM is exact only to a tolerance on the card: their

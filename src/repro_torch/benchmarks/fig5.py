@@ -37,6 +37,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.algorithms import REGISTRY
+from repro_torch.benchmarks import RESULTS
 from repro_torch.benchmarks.dispatch import card
 from repro_torch.benchmarks.matrix import KEY_SEED, RANDOMIZED, _release
 from repro_torch.core import SystemConfig, run
@@ -54,7 +55,6 @@ DYNAMIC_SHOWN = ("DG1", "DGR", "DD1", "DDR")
 TRAVERSAL_APPS = ("BFS", "SSSP", "BC")
 SCALE = 32
 REPEATS = 3
-RESULTS = Path(__file__).resolve().parents[3] / "results" / "torch"
 
 
 def _configs_for(app: str):

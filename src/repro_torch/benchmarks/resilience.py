@@ -17,11 +17,15 @@ longest-converging pinned app):
    ``recovery_speedup`` is the cold seconds over the warm seconds
    (host clock around the whole ``run`` call, best of ``repeats``).
 
-    python -m repro_torch.benchmarks.resilience [--repeats N] [--out PATH]
+    python -m repro_torch.benchmarks.resilience [--smoke] [--repeats N]
+        [--out PATH]
 
 writes ``results/torch/BENCH_resilience.json`` with the card's name and
 power limit as ``nvidia-smi --query-gpu=name,power.limit
---format=csv,noheader`` prints them.
+--format=csv,noheader`` prints them.  ``--smoke`` runs the reference's
+smoke workload (R-MAT scale ``SMOKE_SCALE``, 5 repeats) into a record
+with ``"smoke": true`` under ``results/torch/smoke/``, never into the
+tracked record the perf gate reads.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.algorithms import REGISTRY
+from repro_torch.benchmarks import smoke_out
 from repro_torch.benchmarks.dispatch import PINNED_WORKLOAD, card
 from repro_torch.core import (ALL_CONFIGS, DEFAULT_CHECKPOINT_EVERY,
                               DEFAULT_RING_CAPACITY, RetryPolicy,
@@ -42,11 +47,15 @@ from repro_torch.device import resolve_device
 from repro_torch.graph import rmat_graph
 from repro_torch.testing import NaNFault
 
-__all__ = ["APP", "REPEATS", "RECOVERY_K", "OUT", "run_resilience_bench"]
+__all__ = ["APP", "REPEATS", "SMOKE_SCALE", "SMOKE_REPEATS", "RECOVERY_K",
+           "OUT", "run_resilience_bench"]
 
 #: PR: long enough (~20 pinned iterations) to amortize a boundary
 APP = "PR"
 REPEATS = 10
+#: the reference's smoke run (``benchmarks/resilience.py:62``, ``:88``)
+SMOKE_SCALE = 9
+SMOKE_REPEATS = 5
 #: short against PR's convergence, so the warm ring resumes near the
 #: fault while a cold restart replays the whole prefix
 RECOVERY_K = 4
@@ -73,14 +82,19 @@ def _agree(a, b, device) -> tuple:
     return same, close
 
 
-def run_resilience_bench(out_path=OUT, repeats: int = REPEATS, device=None,
-                         scale: int | None = None) -> dict:
+def run_resilience_bench(out_path=OUT, repeats: int | None = None,
+                         device=None, scale: int | None = None,
+                         smoke: bool = False) -> dict:
     """Run both questions and write the record to ``out_path`` (None: do
-    not write); returns the record."""
+    not write; a smoke run never writes the tracked ``OUT``); returns the
+    record."""
     device = resolve_device(device)
+    if smoke:
+        out_path = smoke_out(out_path, OUT)
+    repeats = repeats or (SMOKE_REPEATS if smoke else REPEATS)
     wl = dict(PINNED_WORKLOAD)
-    if scale is not None:
-        wl["scale"] = scale
+    if scale is not None or smoke:
+        wl["scale"] = scale or SMOKE_SCALE
     program = REGISTRY[APP]()
     g = rmat_graph(weighted=program.weighted, **wl)
     K = DEFAULT_CHECKPOINT_EVERY
@@ -158,6 +172,8 @@ def run_resilience_bench(out_path=OUT, repeats: int = REPEATS, device=None,
         "torch": torch.__version__,
         "workload": {"generator": "rmat", **wl, "app": APP,
                      "n_nodes": g.n_nodes, "n_edges": g.n_edges},
+        # the key only on a smoke record: the tracked records have none
+        **({"smoke": True} if smoke else {}),
         "checkpoint_every": K, "repeats": repeats,
         "configs": configs, "recovery": recovery,
         "summary": {
@@ -186,11 +202,15 @@ def run_resilience_bench(out_path=OUT, repeats: int = REPEATS, device=None,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--repeats", type=int, default=REPEATS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="R-MAT scale 9, 5 repeats, written under "
+                         "results/torch/smoke/")
+    ap.add_argument("--repeats", type=int, default=None)
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args()
-    run_resilience_bench(args.out, args.repeats, args.device)
+    run_resilience_bench(args.out, args.repeats, args.device,
+                         smoke=args.smoke)
 
 
 if __name__ == "__main__":

@@ -13,9 +13,14 @@ batch, serve, resilience, chaos, matrix, specialize).
 The last row is the reference's ``roofline``: the dry run's records
 (``results/torch/dryrun``) through :mod:`repro_torch.benchmarks.
 roofline` at the H100's peaks, single-pod cells, written to
-``<out-dir>/roofline.json``.  The port's batch and
-resilience harnesses have no smoke workload, so the reference's
-``--batch-smoke`` and ``--resilience-smoke`` are not flags here.
+``<out-dir>/roofline.json``.
+
+``--batch-smoke`` and ``--resilience-smoke`` (with ``--batch-only`` /
+``--resilience-only``) run the reference's smoke workloads.  Where the
+reference's smoke runs overwrite its pinned artifacts, the port's write
+``BENCH_batch.json`` / ``BENCH_resilience.json`` under ``--out-dir``,
+by default ``results/torch/smoke/`` (ignored by git), never the tracked
+records the perf gate reads.
 
     PYTHONHASHSEED=0 python -m repro_torch.benchmarks.run --scale 1
 
@@ -29,6 +34,7 @@ import argparse
 import time
 from pathlib import Path
 
+from repro_torch.benchmarks import SMOKE_DIR
 from repro_torch.benchmarks.fig5 import RESULTS, run_fig5
 from repro_torch.benchmarks.fig6 import run_fig6
 from repro_torch.benchmarks.table2 import run_table2
@@ -42,8 +48,10 @@ def main(argv=None) -> None:
                          "is a representative subset")
     ap.add_argument("--scale", type=int, default=32)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
-    ap.add_argument("--out-dir", default=str(RESULTS),
-                    help="where the paper artifacts' JSON goes")
+    ap.add_argument("--out-dir", default=None,
+                    help="where the paper artifacts' JSON goes (default "
+                         "results/torch/) and a smoke run's (default "
+                         "results/torch/smoke/)")
     ap.add_argument("--json", action="store_true",
                     help="also run the host-vs-fused engine benchmark and "
                          "write results/torch/BENCH_dispatch.json")
@@ -58,6 +66,9 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-only", action="store_true",
                     help="only run the batched-serving benchmark and write "
                          "results/torch/BENCH_batch.json")
+    ap.add_argument("--batch-smoke", action="store_true",
+                    help="with --batch-only: tiny graphs, B<=4, written "
+                         "under --out-dir")
     ap.add_argument("--serve-only", action="store_true",
                     help="only run the streaming-gateway benchmark and "
                          "write results/torch/BENCH_serve.json")
@@ -67,6 +78,9 @@ def main(argv=None) -> None:
                     help="only run the checkpoint-overhead / recovery "
                          "benchmark and write "
                          "results/torch/BENCH_resilience.json")
+    ap.add_argument("--resilience-smoke", action="store_true",
+                    help="with --resilience-only: R-MAT scale 9, written "
+                         "under --out-dir")
     ap.add_argument("--chaos-only", action="store_true",
                     help="only run the kill-and-restart benchmark and "
                          "write results/torch/BENCH_chaos.json")
@@ -105,9 +119,13 @@ def main(argv=None) -> None:
                      repeats=2 if args.autotune_smoke else 5, device=dev)
         return
 
+    smoke_dir = Path(args.out_dir or SMOKE_DIR)
     if args.batch_only:
-        from repro_torch.benchmarks.batch import run_batch_bench
-        run_batch_bench(device=dev)
+        from repro_torch.benchmarks.batch import OUT, run_batch_bench
+        if args.batch_smoke:
+            run_batch_bench(smoke_dir / OUT.name, device=dev, smoke=True)
+        else:
+            run_batch_bench(device=dev)
         return
 
     if args.serve_only:
@@ -116,8 +134,13 @@ def main(argv=None) -> None:
         return
 
     if args.resilience_only:
-        from repro_torch.benchmarks.resilience import run_resilience_bench
-        run_resilience_bench(device=dev)
+        from repro_torch.benchmarks.resilience import (OUT,
+                                                       run_resilience_bench)
+        if args.resilience_smoke:
+            run_resilience_bench(smoke_dir / OUT.name, device=dev,
+                                 smoke=True)
+        else:
+            run_resilience_bench(device=dev)
         return
 
     if args.chaos_only:
@@ -132,7 +155,7 @@ def main(argv=None) -> None:
             return
 
     t0 = time.perf_counter()
-    out_dir = Path(args.out_dir)
+    out_dir = Path(args.out_dir or RESULTS)
     rows = run_table2(out_dir=out_dir, device=dev)["rows"]
     dt = (time.perf_counter() - t0) / max(len(rows), 1)
     n_class_ok = sum(

@@ -26,6 +26,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.benchmarks import RESULTS
 from repro_torch.benchmarks.dispatch import card
 from repro_torch.core.taxonomy import (PAPER_GPU, classify_reuse,
                                        classify_volume_kb, profile_graph,
@@ -35,7 +36,6 @@ from repro_torch.graph.datasets import PAPER_AN, PAPER_STATS, paper_graph
 
 __all__ = ["run_table2", "RESULTS", "SCALE"]
 
-RESULTS = Path(__file__).resolve().parents[3] / "results" / "torch"
 #: the recreations' scale of section (b)
 SCALE = 16
 

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.configs.base import make_dlrm_arch
 from repro_torch.data.synthetic import dlrm_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.dlrm import (DLRM, DLRMConfig, dlrm_forward,
@@ -24,7 +25,7 @@ from repro_torch.models.mesh_compat import serving
 
 __all__ = ["CFG", "REDUCED", "SERVE_CELLS", "TRAIN_CELLS",
            "RETRIEVAL_CANDIDATES", "capped", "serving_batch",
-           "training_batch", "serve_step", "retrieval_step"]
+           "training_batch", "serve_step", "retrieval_step", "arch"]
 
 CFG = DLRMConfig()
 
@@ -90,3 +91,7 @@ def retrieval_step(cfg: DLRMConfig, params: DLRM, batch,
                    device=None) -> torch.Tensor:
     """retrieval_cand: the candidates' scores for one query."""
     return retrieval_score(cfg, params, batch, device=device)
+
+
+def arch(axes=None):  # axes unused: no mesh axis names in the config
+    return make_dlrm_arch("dlrm-mlperf", CFG, REDUCED)

@@ -6,6 +6,7 @@ TP-in-expert ``MOE_MODE``).
 SiLU (``models/moe.py``)."""
 import dataclasses
 
+from repro_torch.configs.base import make_lm_arch
 from repro_torch.models.moe import MoEConfig
 
 CFG = MoEConfig(
@@ -21,3 +22,8 @@ REDUCED = dataclasses.replace(
 
 #: the experts' sharding (``make_lm_arch``'s ``moe_mode``): 'tp' keeps the 8 experts whole and shards d_ff over the model axis (8 experts < 16 ranks)
 MOE_MODE = "tp"
+
+
+def arch(axes=None):
+    return make_lm_arch("grok-1-314b", CFG, REDUCED, moe_mode=MOE_MODE,
+                        axes=axes)

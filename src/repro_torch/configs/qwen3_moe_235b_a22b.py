@@ -4,6 +4,7 @@ expert d_ff=1536 vocab=151936, 128 experts top-8.  Counterpart of
 expert-parallel ``MOE_MODE``)."""
 import dataclasses
 
+from repro_torch.configs.base import make_lm_arch
 from repro_torch.models.moe import MoEConfig
 
 CFG = MoEConfig(
@@ -19,3 +20,8 @@ REDUCED = dataclasses.replace(
 
 #: the experts' sharding (``make_lm_arch``'s ``moe_mode``): 'ep' shards the expert axis over the model axis
 MOE_MODE = "ep"
+
+
+def arch(axes=None):
+    return make_lm_arch("qwen3-moe-235b-a22b", CFG, REDUCED, moe_mode=MOE_MODE,
+                        axes=axes)

@@ -18,8 +18,7 @@ import dataclasses
 import importlib
 from functools import lru_cache
 
-from repro_torch.configs.base import (Arch, Axes, make_dlrm_arch,
-                                      make_gnn_arch, make_lm_arch)
+from repro_torch.configs.base import Arch, Axes, make_lm_arch
 
 __all__ = ["ARCH_NAMES", "Arch", "get_arch", "with_layers"]
 
@@ -55,15 +54,7 @@ def with_layers(name: str, n_layers: int, axes: Axes = None) -> Arch:
 
 @lru_cache(maxsize=None)
 def get_arch(name: str, axes: Axes = None) -> Arch:
+    """The arch of ``name``: its module's ``arch(axes)``, cached."""
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; one of {ARCH_NAMES}")
-    family, module = _MODULES[name]
-    mod = importlib.import_module(module)
-    if family == "recsys":
-        return make_dlrm_arch(name, mod.CFG, mod.REDUCED)
-    if family in ("lm", "moe"):
-        return make_lm_arch(name, mod.CFG, mod.REDUCED,
-                            moe_mode=getattr(mod, "MOE_MODE", None),
-                            axes=axes)
-    return make_gnn_arch(name, mod.KIND, mod.builder, mod.INIT, mod.LOSS,
-                         mod.REDUCED)
+    return importlib.import_module(_MODULES[name][1]).arch(axes=axes)

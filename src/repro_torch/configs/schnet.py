@@ -1,6 +1,7 @@
 """schnet [arXiv:1706.08566]: 3 interactions, hidden 64, 300 RBFs,
 cutoff 10 Å.  Counterpart of ``repro.configs.schnet``:
 ``builder(dims)`` is its per-shape ``_builder``."""
+from repro_torch.configs.base import make_gnn_arch
 from repro_torch.models.gnn.schnet import (SchNetConfig, init_schnet,
                                            schnet_loss)
 
@@ -14,3 +15,7 @@ def builder(dims) -> SchNetConfig:
 
 
 REDUCED = SchNetConfig(n_interactions=2, d_hidden=32, n_rbf=50, n_graphs=4)
+
+
+def arch(axes=None):  # axes unused: the parameters are replicated
+    return make_gnn_arch("schnet", KIND, builder, INIT, LOSS, REDUCED)

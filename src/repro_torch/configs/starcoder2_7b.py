@@ -4,6 +4,7 @@ Counterpart of ``repro.configs.starcoder2_7b`` (``CFG`` and ``REDUCED``;
 its dry-run cells are ``configs.base.make_lm_arch``'s)."""
 import dataclasses
 
+from repro_torch.configs.base import make_lm_arch
 from repro_torch.models.transformer import LMConfig
 
 CFG = LMConfig(
@@ -16,3 +17,7 @@ CFG = LMConfig(
 REDUCED = dataclasses.replace(
     CFG, n_layers=2, d_model=96, n_heads=6, n_kv_heads=2, d_head=16,
     d_ff=192, vocab=512, window=32)
+
+
+def arch(axes=None):
+    return make_lm_arch("starcoder2-7b", CFG, REDUCED, axes=axes)

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config_space import SystemConfig, UpdateProp
-from repro_torch.core.executor import (EdgeContext, RunResult,
+from repro_torch.core.executor import (STATS, EdgeContext, RunResult,
                                        _normalize_autotune, _trace_flags)
 from repro_torch.core.frontier import ALPHA, choose_direction_batch
 from repro_torch.core.plan_cache import PLAN_CACHE
@@ -594,6 +594,7 @@ def run_fused_batch(program: VertexProgram, batch: GraphBatch,
                                     occ_traced))
     ex.reset(state)
     launches, _, seconds = capture.drive(ex, limit)
+    STATS.add(launches)
     bctx.host_syncs += launches
     return _per_graph_results(batch, ex.state, ex.it_b, ex.done, ex.dirs,
                               ex.occs, seconds, launches)
@@ -653,6 +654,7 @@ def run_batch_slice(program: VertexProgram, batch: GraphBatch,
     ex.load(state, it_in, dev_vec(done_b, torch.bool),
             dev_vec(limit_b, torch.int32))
     launches, _, seconds = capture.drive(ex, slice_len)
+    STATS.add(launches)
     bctx.host_syncs += launches
     it_out = _host(ex.it_b)
     return BatchSlice(

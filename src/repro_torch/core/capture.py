@@ -70,7 +70,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch.core.executor import (EdgeContext, RunResult,
+from repro_torch.core.executor import (STATS, EdgeContext, RunResult,
                                        _decode_traces, _synchronize,
                                        _trace_flags)
 from repro_torch.core.plan_cache import PLAN_CACHE
@@ -665,6 +665,7 @@ def run_fused(program: VertexProgram, ctx: EdgeContext, state,
                                       occ_traced))
     ex.reset(state)
     launches, done, dt = drive(ex, limit)
+    STATS.add(launches)
     ctx.host_syncs += launches
     it = int(ex.it)
     trace, occ_trace = _decode_traces(

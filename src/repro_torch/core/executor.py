@@ -35,6 +35,7 @@ polls ``done`` once per replay.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import weakref
 from typing import Any, Callable, List, Optional
@@ -60,7 +61,42 @@ from repro_torch.kernels.autotune import autotune_plan, build_reducer
 from repro_torch.kernels.segment_reduce import (DEFAULT_PLAN,
                                                 gathered_segment_reduce)
 
-__all__ = ["EdgeContext", "RunResult", "run", "run_batch", "resolve_device"]
+__all__ = ["EdgeContext", "RunResult", "run", "run_batch", "resolve_device",
+           "ExecutorStats", "STATS"]
+
+
+@dataclasses.dataclass
+class ExecutorStats:
+    """Process-wide count of timed dispatches (``executor.py:88-115``).
+
+    ``dispatches`` grows by each run's ``RunResult.dispatches``: the host
+    engine's steps, one per iteration as in the reference; the fused
+    engine's replays, ``ceil(iterations / STEPS_PER_LAUNCH)`` where the
+    reference counts its one ``while_loop``; and once per replay of a
+    packed batch or a gateway slice, shared by the batch's graphs.
+    Warm-ups and captures are not counted.  Gateway lanes run on
+    threads, so the count is taken under a lock.
+    """
+    dispatches: int = 0
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def add(self, n: int) -> None:
+        with self._lock:
+            self.dispatches += n
+
+    def reset(self) -> None:
+        with self._lock:
+            self.dispatches = 0
+
+    @staticmethod
+    def plan_cache() -> dict:
+        """Plan-cache counters, global and per kind
+        (:meth:`~repro_torch.core.plan_cache.PlanCache.stats`)."""
+        return PLAN_CACHE.stats()
+
+
+STATS = ExecutorStats()
 
 
 def _normalize_autotune(autotune) -> str:
@@ -600,6 +636,7 @@ def _run_host(program: VertexProgram, ctx: EdgeContext, state,
             break
     _synchronize(ctx.device)
     dt = time.perf_counter() - t0
+    STATS.add(it)
     syncs = ctx.host_syncs - syncs
     trace, occ_trace = _decode_traces(
         torch.stack(dir_raw) if traced else None,

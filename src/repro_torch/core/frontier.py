@@ -22,9 +22,9 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = ["ALPHA", "BETA", "frontier_size", "frontier_edges",
-           "choose_direction", "choose_direction_batch", "SparseFrontier",
-           "FrontierEdges", "dense_to_sparse", "sparse_to_dense",
-           "gather_frontier_edges"]
+           "frontier_density", "choose_direction", "choose_direction_batch",
+           "SparseFrontier", "FrontierEdges", "dense_to_sparse",
+           "sparse_to_dense", "gather_frontier_edges"]
 
 #: push->pull trigger: pull once frontier out-edges exceed unexplored/ALPHA.
 ALPHA = 14.0
@@ -41,6 +41,22 @@ def frontier_edges(mask: torch.Tensor,
                    out_degree: torch.Tensor) -> torch.Tensor:
     """Number of edges leaving the frontier (``m_f``), an int32 scalar."""
     return torch.where(mask, out_degree.int(), 0).sum(dtype=torch.int32)
+
+
+def frontier_density(mask: torch.Tensor, out_degree: torch.Tensor,
+                     n_edges: int) -> torch.Tensor:
+    """Fraction of all edges that leave the frontier, a float32 scalar
+    in [0, 1] (``frontier.py:71-74``).
+
+    The reference divides the int32 ``m_f`` by ``max(n_edges, 1)`` under
+    JAX's promotion: both become float32 and are divided.  The divisor
+    is a float32 tensor on the mask's device, not a Python scalar, so
+    the card divides too rather than multiplying by a reciprocal, and
+    the result is the reference's bit for bit.
+    """
+    denom = torch.tensor(float(max(n_edges, 1)), dtype=torch.float32,
+                         device=mask.device)
+    return frontier_edges(mask, out_degree).float() / denom
 
 
 def choose_direction(mask: torch.Tensor, out_degree: torch.Tensor,

@@ -52,7 +52,7 @@ import torch
 from repro_torch.core.capture import (_no_host_reads, build_segment,
                                       cached_engine)
 from repro_torch.core.config_space import SystemConfig, UpdateProp
-from repro_torch.core.executor import (EdgeContext, RunResult,
+from repro_torch.core.executor import (STATS, EdgeContext, RunResult,
                                        _decode_traces, _normalize_autotune,
                                        _synchronize, _trace_flags)
 from repro_torch.core.vertex_program import (DENSE_OCC, FRONTIER_DIR_KEY,
@@ -509,6 +509,7 @@ def _segment_loop(program, ctx, cp, limit, K, ring, sentinel_fns, injector,
             prev = {k: t.clone() for k, t in runner.state.items()}
             # either engine reads ``done`` once per dispatch
             dispatches, done = runner.advance(lo, seg_end)
+            STATS.add(dispatches)
             segments += 1
             acct.dispatches += dispatches
             acct.host_syncs += dispatches

@@ -1,5 +1,6 @@
-from repro_torch.graph.structure import (ARRAY_FIELDS, Graph,
-                                         graph_from_arrays, validate_graph)
+from repro_torch.graph.structure import (ARRAY_FIELDS, Graph, GraphStats,
+                                         graph_from_arrays, graph_stats,
+                                         validate_graph)
 from repro_torch.graph.generators import (grid_graph, powerlaw_graph,
                                           random_graph, regular_graph,
                                           rmat_batch, rmat_graph)
@@ -15,7 +16,8 @@ from repro_torch.graph.partition import (EdgePartition, VertexPartition,
 from repro_torch.graph.sampler import NeighborSampler, SampledBlock
 
 __all__ = [
-    "ARRAY_FIELDS", "Graph", "graph_from_arrays", "validate_graph",
+    "ARRAY_FIELDS", "Graph", "GraphStats", "graph_stats",
+    "graph_from_arrays", "validate_graph",
     "grid_graph", "powerlaw_graph", "random_graph", "regular_graph",
     "rmat_graph", "rmat_batch",
     "PAPER_GRAPHS", "PAPER_STATS", "PAPER_AN", "PAPER_SOURCES",

@@ -16,6 +16,7 @@ works on.
 from __future__ import annotations
 
 import dataclasses
+from functools import cached_property
 from typing import Dict
 
 import numpy as np
@@ -23,7 +24,8 @@ import torch
 
 from repro_torch.kernels.segment_reduce.ops import bin_edges_by_block
 
-__all__ = ["Graph", "validate_graph", "graph_from_arrays", "ARRAY_FIELDS"]
+__all__ = ["Graph", "GraphStats", "graph_stats", "validate_graph",
+           "graph_from_arrays", "ARRAY_FIELDS"]
 
 #: The per-edge and per-vertex array fields of :class:`Graph`, in order.
 ARRAY_FIELDS = ("src", "dst", "weight", "row_ptr_out", "src_in", "dst_in",
@@ -135,6 +137,39 @@ class Graph:
         if isinstance(perm, torch.Tensor):
             perm = perm.long()
         return self.src[perm], self.dst[perm], self.weight[perm]
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphStats:
+    """Size and out-degree summary of a graph
+    (``repro.graph.structure:153-163``)."""
+
+    n_nodes: int
+    n_edges: int
+    max_degree: int
+    avg_degree: float
+    std_degree: float
+
+    @cached_property
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+def graph_stats(g: Graph) -> GraphStats:
+    """:class:`GraphStats` of ``g`` (``repro.graph.structure:234-242``).
+
+    Computed on the host from the int32 out-degrees, mean and std in
+    numpy float64 as in the reference, so the figures are equal, not
+    just close, wherever the graph's arrays live.
+    """
+    deg = host_array(g.out_degree)
+    return GraphStats(
+        n_nodes=g.n_nodes,
+        n_edges=g.n_edges,
+        max_degree=int(deg.max()) if deg.size else 0,
+        avg_degree=float(deg.mean()) if deg.size else 0.0,
+        std_degree=float(deg.std()) if deg.size else 0.0,
+    )
 
 
 def host_array(a) -> np.ndarray:

@@ -59,12 +59,17 @@ __all__ = [
     "degree_features", "degree_signature", "candidate_plans", "suggest_plan",
     "build_reducer", "measure_plan", "tune", "autotune_plan", "TuneResult",
     "load_disk_cache", "store_disk_entry", "persist_tune_result",
-    "DEFAULT_CACHE_PATH", "THREADS", "HEURISTIC_THREADS",
+    "DEFAULT_CACHE_PATH", "ORDERS", "THREADS", "HEURISTIC_THREADS",
 ]
 
 #: Where tuned plans persist across processes: machine state, not a
 #: record (ignored by git).
 DEFAULT_CACHE_PATH = "results/torch/autotune_cache.json"
+
+#: Edge orders the blocked reducer serves (``autotune.py:61``);
+#: "gathered" is the sparse frontier path, whose only tunable is
+#: ``gather_splits``.
+ORDERS = ("owned", "pull", "gathered")
 
 #: The thread axis of every blocked candidate: K1/K2's threads per CTA.
 THREADS = (128, 256, 512, 1024)

@@ -27,6 +27,7 @@ the dry run.  The heads are gathered because the models' head counts
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -37,11 +38,22 @@ from repro_torch.kernels.flash_attention.kernel import (NEG_INF,
                                                        flash_attention)
 from repro_torch.models.mesh_compat import is_dtensor, replicate_as
 
-__all__ = ["Dense", "Norm", "MLP", "init_dense", "dense", "init_norm",
-           "rms_norm", "layer_norm", "rope", "blocked_attention",
+__all__ = ["Dtypes", "DEFAULT_DTYPES", "Dense", "Norm", "MLP", "init_dense",
+           "dense", "init_norm", "rms_norm", "layer_norm", "rope", "blocked_attention",
            "gqa_attention", "init_mlp", "mlp", "cross_entropy", "ACTS",
            "fsdp_gather",
            "ATTN_IMPLS"]
+
+@dataclasses.dataclass(frozen=True)
+class Dtypes:
+    """The mixed-precision contract (``layers.py:20-27``): parameters and
+    compute in bf16, accumulation in f32."""
+    param: torch.dtype = torch.bfloat16
+    compute: torch.dtype = torch.bfloat16
+    accum: torch.dtype = torch.float32
+
+
+DEFAULT_DTYPES = Dtypes()
 
 #: The MLP activations of ``layers.py:mlp``.
 ACTS = ("swiglu", "geglu", "gelu", "relu", "silu")

@@ -1862,3 +1862,58 @@ def test_checkpoint_restore_with_shardings_on_the_card(nccl_mesh, tmp_path):
     for n in opt["mu"]:
         assert torch.equal(ro["mu"][n].full_tensor(),
                            opt["mu"][n].full_tensor()), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,cfg", [("SSSP", "TG0"), ("PR", "SD0")])
+def test_stats_counts_each_engine_with_the_kernels_on_the_card(
+        cuda_device, engine_graph, app, cfg):
+    """``STATS`` grows by each run's dispatches: the host engine's
+    iterations, the fused engine's replays; K2 (SSSP's min over the CSC
+    order) or K1 (PR's owned sum) launched; the states those of a plain
+    fused run (SSSP exact, PR to atol 1e-6)."""
+    from repro_torch.core import STATS
+    kernel = seg_sum if app == "PR" else seg_minmax
+    launches = kernel.launches
+    STATS.reset()
+    fused, host = _engines(app, engine_graph, cfg, cuda_device)
+    assert STATS.dispatches == host.dispatches + fused.dispatches
+    assert host.dispatches == host.iterations
+    assert kernel.launches > launches
+    plain = run(REGISTRY[app](), engine_graph, SystemConfig.from_name(cfg),
+                device=cuda_device)
+    for res in (fused, host):
+        if app == "PR":
+            assert abs(res.iterations - plain.iterations) <= 1
+            torch.testing.assert_close(res.state["rank"],
+                                       plain.state["rank"], rtol=0,
+                                       atol=1e-6)
+        else:
+            assert res.iterations == plain.iterations
+            for key, want in plain.state.items():
+                assert torch.equal(res.state[key], want), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_gathered_reduce_matches_its_oracle_on_the_card(cuda_device, dtype,
+                                                        kind):
+    """Ids below 0 and past the segments dropped; exact but for the
+    float32 sum, which the card adds in a run-dependent order."""
+    from repro_torch.kernels.segment_reduce import (
+        gathered_segment_reduce, gathered_segment_reduce_ref)
+    rng = np.random.default_rng(5)
+    n, segs = 20_000, 1_000
+    ids = rng.integers(-3, segs + 3, n).astype(np.int32)
+    vals = (rng.standard_normal(n).astype(np.float32) if dtype == "float32"
+            else rng.integers(-1000, 1000, n).astype(np.int32))
+    got = gathered_segment_reduce(
+        torch.from_numpy(vals).to(cuda_device),
+        torch.from_numpy(ids).to(cuda_device), segs, kind).cpu().numpy()
+    want = gathered_segment_reduce_ref(vals, ids, segs, kind)
+    assert got.dtype == want.dtype
+    if dtype == "float32" and kind == "sum":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)

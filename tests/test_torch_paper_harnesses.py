@@ -190,7 +190,32 @@ def test_run_entry_point_prints_the_references_rows(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--batch-smoke", "--resilience-smoke"])
-def test_run_refuses_smoke_runs_the_port_has_not(flag):
+def test_run_refuses_smoke_runs_the_port_has_not(flag, tmp_path):
+    """The reference's two smoke flags run the smoke workloads into
+    ``--out-dir``, never into the tracked records the perf gate reads
+    (the reference's overwrite its pinned artifacts)."""
+    import torch
+    from repro_torch.benchmarks import RESULTS
     from repro_torch.benchmarks import run as trun
-    with pytest.raises(SystemExit):
-        trun.main([flag, "--device", "cpu"])
+    kind = flag[2:-len("-smoke")]
+    tracked = RESULTS / f"BENCH_{kind}.json"
+    before = tracked.read_bytes()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        trun.main([f"--{kind}-only", flag, "--device", "cpu",
+                   "--out-dir", str(tmp_path)])
+    finally:
+        torch.set_num_threads(threads)
+    assert tracked.read_bytes() == before
+    rec = json.loads((tmp_path / tracked.name).read_text())
+    assert rec["smoke"] is True
+    if kind == "batch":
+        assert rec["workload"]["scale"] == 5 and rec["sizes"] == [1, 4]
+        assert rec["repeats"] == 2
+        assert all(c["equal_sequential"] for per_b in rec["configs"].values()
+                   for c in per_b.values())
+    else:
+        assert rec["workload"]["scale"] == 9 and rec["repeats"] == 5
+        assert all(c["bit_identical"] for c in rec["configs"].values())
+    assert len(rec["configs"]) == 18
