@@ -369,7 +369,7 @@ script exits non-zero:
    unchanged by the phase; (f) ``examples/lm_demo_torch.py --steps 20``
    on the card: finite losses, one K4 launch per layer in its prefill,
    the decoded ids and ms per token.  (e) and (f) run in their own
-   processes, started together at the phase's start (logs
+   processes, one after another, after (a)-(d) (logs
    ``batch_smoke.log``, ``resilience_smoke.log``, ``lm_demo_torch.log``
    beside ``--out``).
 13. print the kernel table as one JSON line, then the last line
@@ -3635,45 +3635,28 @@ def resilience_phase(graph, dev) -> tuple:
     return record, launches, device_launches
 
 
-def _launch(argv: list, log_path: Path) -> tuple:
-    """Start ``argv`` from the checkout's root with ``PYTHONHASHSEED``
-    fixed and ``src`` on the path, its output to ``log_path``."""
+def _bench_subprocess(module: str, args: list, log_path: Path) -> float:
+    """``python -m module args`` (``python module args`` where ``module``
+    is a ``.py`` path) from the checkout's root with ``PYTHONHASHSEED``
+    fixed, its output to ``log_path``; fails unless it exits 0 within
+    BENCH_TIMEOUT_S.  Returns its seconds."""
     env = dict(os.environ, PYTHONHASHSEED=HASH_SEED)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]]
                                if env.get("PYTHONPATH") else []))
-    fh = open(log_path, "w")
-    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=fh,
-                            stderr=subprocess.STDOUT)
-    return proc, fh, time.perf_counter()
-
-
-def _wait(what: str, started: tuple, log_path: Path) -> float:
-    """Wait for a process :func:`_launch` started; fails unless it exits 0
-    within BENCH_TIMEOUT_S (killed if it does not).  Returns its
-    seconds."""
-    proc, fh, t0 = started
-    try:
-        rc = proc.wait(timeout=BENCH_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        raise AssertionError(f"{what}: no exit in {BENCH_TIMEOUT_S} s")
-    finally:
-        fh.close()
+    target = [module] if module.endswith(".py") else ["-m", module]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as fh:
+        proc = subprocess.run([sys.executable, *target, *args],
+                              cwd=ROOT, env=env, stdout=fh,
+                              stderr=subprocess.STDOUT,
+                              timeout=BENCH_TIMEOUT_S)
     seconds = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"{what} exited {rc}:\n"
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
                              + log_path.read_text()[-4000:])
-    log(f"{what}: exit 0 in {seconds:.1f} s (log {log_path})")
+    log(f"{module}: exit 0 in {seconds:.1f} s (log {log_path})")
     return seconds
-
-
-def _bench_subprocess(module: str, args: list, log_path: Path) -> float:
-    """``python -m module args`` as :func:`_launch` starts it, waited
-    for as :func:`_wait` does.  Returns its seconds."""
-    return _wait(module, _launch([sys.executable, "-m", module, *args],
-                                 log_path), log_path)
 
 
 def _kernel_order(config_name: str) -> bool:
@@ -4525,77 +4508,62 @@ def last_names_phase(dev, log_dir: Path) -> tuple:
                for n in ("batch", "resilience")]
     before = [p.read_bytes() for p in tracked]
     smoke_dir = ROOT / "build" / "last_names_smoke"
-    # (e) and (f) run in their own processes, beside (a)-(d)
-    started = {
-        "batch smoke": (_launch([
-            sys.executable, "-m", "repro_torch.benchmarks.run",
+    record = {}
+    graph = powerlaw_graph(**AMZ)
+    gdev = graph.to(dev)
+    # (a) graph_stats on the card against numpy on the host copy
+    deg = host_array(graph.out_degree)
+    want = dict(n_nodes=graph.n_nodes, n_edges=graph.n_edges,
+                max_degree=int(deg.max()), avg_degree=float(deg.mean()),
+                std_degree=float(deg.std()))
+    stats = graph_stats(gdev).as_dict
+    if stats != want:
+        raise AssertionError(f"graph_stats {stats} != numpy {want}")
+    record["graph_stats"] = stats
+    log(f"last names (a): graph_stats of the AMZ stand-in on the card "
+        f"{json.dumps(stats)}")
+
+    # (b) frontier_density over a BFS run's frontiers (one per level)
+    res = run(REGISTRY["BFS"](), graph,
+              SystemConfig.from_name(LAST_BFS_CONFIG), device=dev)
+    depth = res.state["depth"]
+    depth_h = depth.cpu().numpy()
+    got, want = [], []
+    for level in range(int(depth_h.max()) + 1):
+        d = frontier_density(depth == level, gdev.out_degree,
+                             graph.n_edges)
+        if d.dtype != torch.float32 or d.device != gdev.out_degree.device:
+            raise AssertionError(f"frontier_density: {d.dtype} on "
+                                 f"{d.device}")
+        m_f = np.int32(deg[depth_h == level].sum(dtype=np.int32))
+        got.append(np.float32(d.item()))
+        want.append(np.float32(m_f) / np.float32(max(graph.n_edges, 1)))
+    if np.asarray(got).view(np.uint32).tolist() != \
+            np.asarray(want).view(np.uint32).tolist():
+        raise AssertionError(f"frontier_density {got} != numpy {want}")
+    record["frontier_density"] = [float(x) for x in got]
+    log(f"last names (b): frontier_density of {len(got)} BFS "
+        f"{LAST_BFS_CONFIG} frontiers bit-equal to numpy float32: "
+        f"{[round(float(x), 6) for x in got]}")
+
+    # (c) STATS and K1/K2; (d) the gathered reduce and its oracle
+    record["stats"] = _stats_runs(graph, dev)
+    record["gathered"] = _gathered_checks(dev)
+    del graph, gdev, res, depth
+
+    # (e) the smoke harnesses; (f) the LM demo, one after another
+    run_mod = "repro_torch.benchmarks.run"
+    record["subprocess_seconds"] = {
+        "batch smoke": _bench_subprocess(run_mod, [
             "--batch-only", "--batch-smoke", "--out-dir", str(smoke_dir)],
-            log_dir / "batch_smoke.log"), log_dir / "batch_smoke.log"),
-        "resilience smoke": (_launch([
-            sys.executable, "-m", "repro_torch.benchmarks.run",
+            log_dir / "batch_smoke.log"),
+        "resilience smoke": _bench_subprocess(run_mod, [
             "--resilience-only", "--resilience-smoke", "--out-dir",
             str(smoke_dir)], log_dir / "resilience_smoke.log"),
-            log_dir / "resilience_smoke.log"),
-        "examples/lm_demo_torch.py": (_launch([
-            sys.executable, "examples/lm_demo_torch.py", "--steps",
-            str(LM_DEMO_STEPS)], log_dir / "lm_demo_torch.log"),
+        "examples/lm_demo_torch.py": _bench_subprocess(
+            "examples/lm_demo_torch.py", ["--steps", str(LM_DEMO_STEPS)],
             log_dir / "lm_demo_torch.log"),
     }
-    record = {}
-    try:
-        graph = powerlaw_graph(**AMZ)
-        gdev = graph.to(dev)
-        # (a) graph_stats on the card against numpy on the host copy
-        deg = host_array(graph.out_degree)
-        want = dict(n_nodes=graph.n_nodes, n_edges=graph.n_edges,
-                    max_degree=int(deg.max()), avg_degree=float(deg.mean()),
-                    std_degree=float(deg.std()))
-        stats = graph_stats(gdev).as_dict
-        if stats != want:
-            raise AssertionError(f"graph_stats {stats} != numpy {want}")
-        record["graph_stats"] = stats
-        log(f"last names (a): graph_stats of the AMZ stand-in on the card "
-            f"{json.dumps(stats)}")
-
-        # (b) frontier_density over a BFS run's frontiers (one per level)
-        res = run(REGISTRY["BFS"](), graph,
-                  SystemConfig.from_name(LAST_BFS_CONFIG), device=dev)
-        depth = res.state["depth"]
-        depth_h = depth.cpu().numpy()
-        got, want = [], []
-        for level in range(int(depth_h.max()) + 1):
-            d = frontier_density(depth == level, gdev.out_degree,
-                                 graph.n_edges)
-            if d.dtype != torch.float32 or d.device != gdev.out_degree.device:
-                raise AssertionError(f"frontier_density: {d.dtype} on "
-                                     f"{d.device}")
-            m_f = np.int32(deg[depth_h == level].sum(dtype=np.int32))
-            got.append(np.float32(d.item()))
-            want.append(np.float32(m_f) / np.float32(max(graph.n_edges, 1)))
-        if np.asarray(got).view(np.uint32).tolist() != \
-                np.asarray(want).view(np.uint32).tolist():
-            raise AssertionError(f"frontier_density {got} != numpy {want}")
-        record["frontier_density"] = [float(x) for x in got]
-        log(f"last names (b): frontier_density of {len(got)} BFS "
-            f"{LAST_BFS_CONFIG} frontiers bit-equal to numpy float32: "
-            f"{[round(float(x), 6) for x in got]}")
-
-        # (c) STATS and K1/K2; (d) the gathered reduce and its oracle
-        record["stats"] = _stats_runs(graph, dev)
-        record["gathered"] = _gathered_checks(dev)
-        del graph, gdev, res, depth
-
-        # (e) the smoke harnesses; (f) the LM demo
-        seconds = {what: _wait(what, st, path)
-                   for what, (st, path) in started.items()}
-        started = {}
-    finally:
-        for (proc, fh, _), _ in started.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            fh.close()
-    record["subprocess_seconds"] = seconds
     record["smoke"] = _smoke_records(smoke_dir)
     if [p.read_bytes() for p in tracked] != before:
         raise AssertionError("a smoke run changed the tracked "

@@ -19,8 +19,9 @@ roofline` at the H100's peaks, single-pod cells, written to
 ``--resilience-only``) run the reference's smoke workloads.  Where the
 reference's smoke runs overwrite its pinned artifacts, the port's write
 ``BENCH_batch.json`` / ``BENCH_resilience.json`` under ``--out-dir``,
-by default ``results/torch/smoke/`` (ignored by git), never the tracked
-records the perf gate reads.
+or under ``results/torch/smoke/`` (ignored by git) in place of the
+default ``results/torch/``: never the tracked records the perf gate
+reads.
 
     PYTHONHASHSEED=0 python -m repro_torch.benchmarks.run --scale 1
 
@@ -34,7 +35,6 @@ import argparse
 import time
 from pathlib import Path
 
-from repro_torch.benchmarks import SMOKE_DIR
 from repro_torch.benchmarks.fig5 import RESULTS, run_fig5
 from repro_torch.benchmarks.fig6 import run_fig6
 from repro_torch.benchmarks.table2 import run_table2
@@ -48,10 +48,10 @@ def main(argv=None) -> None:
                          "is a representative subset")
     ap.add_argument("--scale", type=int, default=32)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
-    ap.add_argument("--out-dir", default=None,
-                    help="where the paper artifacts' JSON goes (default "
-                         "results/torch/) and a smoke run's (default "
-                         "results/torch/smoke/)")
+    ap.add_argument("--out-dir", default=str(RESULTS),
+                    help="where the paper artifacts' and the batch and "
+                         "resilience records' JSON goes (a smoke run's "
+                         "default: results/torch/smoke/)")
     ap.add_argument("--json", action="store_true",
                     help="also run the host-vs-fused engine benchmark and "
                          "write results/torch/BENCH_dispatch.json")
@@ -65,10 +65,11 @@ def main(argv=None) -> None:
                          "grid")
     ap.add_argument("--batch-only", action="store_true",
                     help="only run the batched-serving benchmark and write "
-                         "results/torch/BENCH_batch.json")
+                         "BENCH_batch.json under --out-dir")
     ap.add_argument("--batch-smoke", action="store_true",
                     help="with --batch-only: tiny graphs, B<=4, written "
-                         "under --out-dir")
+                         "under results/torch/smoke/ unless --out-dir "
+                         "is given")
     ap.add_argument("--serve-only", action="store_true",
                     help="only run the streaming-gateway benchmark and "
                          "write results/torch/BENCH_serve.json")
@@ -77,10 +78,11 @@ def main(argv=None) -> None:
     ap.add_argument("--resilience-only", action="store_true",
                     help="only run the checkpoint-overhead / recovery "
                          "benchmark and write "
-                         "results/torch/BENCH_resilience.json")
+                         "BENCH_resilience.json under --out-dir")
     ap.add_argument("--resilience-smoke", action="store_true",
                     help="with --resilience-only: R-MAT scale 9, written "
-                         "under --out-dir")
+                         "under results/torch/smoke/ unless --out-dir "
+                         "is given")
     ap.add_argument("--chaos-only", action="store_true",
                     help="only run the kill-and-restart benchmark and "
                          "write results/torch/BENCH_chaos.json")
@@ -119,13 +121,10 @@ def main(argv=None) -> None:
                      repeats=2 if args.autotune_smoke else 5, device=dev)
         return
 
-    smoke_dir = Path(args.out_dir or SMOKE_DIR)
     if args.batch_only:
         from repro_torch.benchmarks.batch import OUT, run_batch_bench
-        if args.batch_smoke:
-            run_batch_bench(smoke_dir / OUT.name, device=dev, smoke=True)
-        else:
-            run_batch_bench(device=dev)
+        run_batch_bench(Path(args.out_dir) / OUT.name, device=dev,
+                        smoke=args.batch_smoke)
         return
 
     if args.serve_only:
@@ -136,11 +135,8 @@ def main(argv=None) -> None:
     if args.resilience_only:
         from repro_torch.benchmarks.resilience import (OUT,
                                                        run_resilience_bench)
-        if args.resilience_smoke:
-            run_resilience_bench(smoke_dir / OUT.name, device=dev,
-                                 smoke=True)
-        else:
-            run_resilience_bench(device=dev)
+        run_resilience_bench(Path(args.out_dir) / OUT.name, device=dev,
+                             smoke=args.resilience_smoke)
         return
 
     if args.chaos_only:
@@ -155,7 +151,7 @@ def main(argv=None) -> None:
             return
 
     t0 = time.perf_counter()
-    out_dir = Path(args.out_dir or RESULTS)
+    out_dir = Path(args.out_dir)
     rows = run_table2(out_dir=out_dir, device=dev)["rows"]
     dt = (time.perf_counter() - t0) / max(len(rows), 1)
     n_class_ok = sum(

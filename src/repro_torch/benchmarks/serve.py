@@ -31,16 +31,12 @@ server's per-graph service seconds are measured again (best of
 (one serial measurement before all the windows goes stale as the host's
 load drifts).  The windows run solo, closed, solo, open, ...
 (``windows`` in the record), ``repeats`` of each mode: 15 at the pinned
-workload, where the reference takes 5.  A gateway window that meets a
-roster the gateway has not packed before captures its slice graph
-inside the window and reads far slower; such windows are recorded (the
-``captures`` of each pair) but do not set the figures.  A mode with
-fewer than ``MIN_CLEAN`` capture-free windows runs more pairs, up to
-``MAX_WINDOWS_X`` times ``repeats``.  Each mode keeps the best of its
-capture-free pairs (of all, if none): throughput from the pair of the
-highest ``throughput_speedup``, p99 from the pair of the highest
-``p99_gain``; ``pairs`` lists every pair and ``median_all_speedup`` is
-their median, captures included.  The open loop's arrival schedule is
+workload, where the reference takes 5.  Each mode keeps the best of its
+pairs: throughput from the pair of the highest ``throughput_speedup``,
+p99 from the pair of the highest ``p99_gain``.  ``pairs`` lists every
+pair with the slice graphs its gateway window captured (a roster the
+gateway has not packed before is captured inside the window that meets
+it, a cost a real stream pays).  The open loop's arrival schedule is
 fixed by a first serial measurement.  The port's gateway sits below the
 gate's caps, so its ratios are read unclamped.
 
@@ -78,18 +74,8 @@ SMOKE_WORKLOAD = dict(scale=5, edge_factor=8, seed=7, pool=4,
                       requests=64, clients=8)
 #: windows per mode at the pinned workload
 PINNED_REPEATS = 15
-#: timed runs per graph of each serial measurement (after one untimed):
-#: the best of 5 left the serial side +-15 % apart between windows of one
-#: run on an H100, and each mode's best pair then picked a slow serial
-#: measurement as often as a fast gateway window
-SOLO_REPEATS = 15
-#: capture-free gateway windows each mode needs: a roster the gateway
-#: has not packed before is captured inside the window that meets it,
-#: and on an H100 each such capture cut that window's throughput 2-10x,
-#: in 0 to 15 of 15 windows of a run.  A mode short of them runs more
-#: pairs, up to ``MAX_WINDOWS_X`` times ``repeats`` in all.
-MIN_CLEAN = 5
-MAX_WINDOWS_X = 3
+#: timed runs per graph of each serial measurement (after one untimed)
+SOLO_REPEATS = 5
 APP = "BFS"
 CONFIG = "DG1"
 MAX_BATCH = 8
@@ -214,24 +200,17 @@ def _gateway_open(program, pool, config, n_requests, interarrivals,
     return [r.seconds for r in results], n_requests / wall, snap
 
 
-def _clean(pairs: list) -> list:
-    """The pairs whose gateway window captured nothing."""
-    return [p for p in pairs if not p["snap"]["captures"]]
-
-
 def _mode_entry(pairs: list) -> dict:
-    """One mode's entry from its (serial, gateway) pairs, the
-    capture-free ones if any: throughput from the pair of the best
-    ``throughput_speedup``, p99 from the pair of the best ``p99_gain``.
-    ``median_all_speedup`` reads every pair, captures included."""
+    """One mode's entry from its (serial, gateway) pairs: throughput from
+    the pair of the best ``throughput_speedup``, p99 from the pair of the
+    best ``p99_gain``."""
     for p in pairs:
         p["speedup"] = p["gw_rps"] / p["solo_rps"]
         p["gw_p99"], p["solo_p99"] = _pct(p["gw_lat"], 99), _pct(
             p["solo_lat"], 99)
         p["p99_gain"] = p["solo_p99"] / max(p["gw_p99"], 1e-12)
-    best = _clean(pairs) or pairs
-    t = max(best, key=lambda p: p["speedup"])
-    q = max(best, key=lambda p: p["p99_gain"])
+    t = max(pairs, key=lambda p: p["speedup"])
+    q = max(pairs, key=lambda p: p["p99_gain"])
     snap = t["snap"]
     return {
         "gateway": {
@@ -250,9 +229,6 @@ def _mode_entry(pairs: list) -> dict:
         },
         "throughput_speedup": t["speedup"],
         "p99_gain": q["p99_gain"],
-        "clean_windows": len(_clean(pairs)),
-        "median_all_speedup": float(np.median([p["speedup"]
-                                               for p in pairs])),
         "pairs": [{"throughput_speedup": p["speedup"],
                    "p99_gain": p["p99_gain"],
                    "gateway_rps": p["gw_rps"], "solo_rps": p["solo_rps"],
@@ -305,10 +281,6 @@ def run_serve_bench(out_path=OUT, smoke: bool = False,
     for _ in range(repeats):
         for mode in windows:
             measure(mode)
-    for mode in windows:  # a mode short of capture-free windows
-        while (len(_clean(pairs[mode])) < min(MIN_CLEAN, repeats)
-               and len(pairs[mode]) < MAX_WINDOWS_X * repeats):
-            measure(mode)
     closed = _mode_entry(pairs["closed"])
     opened = _mode_entry(pairs["open"])
 
@@ -325,7 +297,6 @@ def run_serve_bench(out_path=OUT, smoke: bool = False,
         "smoke": smoke,
         "repeats": repeats,
         "solo_repeats": SOLO_REPEATS,
-        "min_clean": MIN_CLEAN,
         "windows": order,
         # per graph, the best of every serial measurement
         "solo_service_ms": [min(col) * 1e3 for col in zip(*services)],
