@@ -70,6 +70,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import spans
 from repro_torch.core.executor import (STATS, EdgeContext, RunResult,
                                        _decode_traces, _synchronize,
                                        _trace_flags)
@@ -655,23 +656,37 @@ def drive(ex: _Fused, limit: int) -> tuple:
 
 
 def run_fused(program: VertexProgram, ctx: EdgeContext, state,
-              limit: int) -> RunResult:
+              limit: int, phases: Dict[str, float]) -> RunResult:
     """Drive ``program`` to convergence with the fused engine.  The
     timed region holds the launches and their polls; decoding ``it`` and
-    the traces comes after the timer stops."""
+    the traces comes after the timer stops.  ``phases`` receives the
+    engine's lookup (and build, on a miss) as ``run.engine``, the reset
+    as ``run.reset``, :func:`drive`'s own seconds as ``run.drive`` and
+    the decoding and the state's clone as ``run.finish``;
+    ``RunResult.captures`` is 1 when the lookup built the engine."""
     traced, occ_traced = _trace_flags(program, state)
-    ex = cached_engine(program, ctx, (limit, traced, occ_traced),
-                       lambda: _build(program, ctx, state, limit, traced,
-                                      occ_traced))
-    ex.reset(state)
-    launches, done, dt = drive(ex, limit)
-    STATS.add(launches)
-    ctx.host_syncs += launches
-    it = int(ex.it)
-    trace, occ_trace = _decode_traces(
-        ex.dirs[:it] if traced else None, ex.occs[:it] if occ_traced else None)
-    return RunResult(state={k: t.clone() for k, t in ex.state.items()},
-                     iterations=it, seconds=dt, converged=done,
-                     direction_trace=trace, occupancy_trace=occ_trace,
-                     engine="fused", dispatches=launches,
-                     host_syncs=launches)
+    built = []
+
+    def build():
+        built.append(True)
+        return _build(program, ctx, state, limit, traced, occ_traced)
+
+    with spans.phase(phases, "run.engine"):
+        ex = cached_engine(program, ctx, (limit, traced, occ_traced), build)
+    with spans.phase(phases, "run.reset"):
+        ex.reset(state)
+    with spans.span(spans.PREFIX + "run.drive"):
+        launches, done, dt = drive(ex, limit)
+    phases["run.drive"] = dt
+    with spans.phase(phases, "run.finish"):
+        STATS.add(launches)
+        ctx.host_syncs += launches
+        it = int(ex.it)
+        trace, occ_trace = _decode_traces(
+            ex.dirs[:it] if traced else None,
+            ex.occs[:it] if occ_traced else None)
+        return RunResult(state={k: t.clone() for k, t in ex.state.items()},
+                         iterations=it, seconds=dt, converged=done,
+                         direction_trace=trace, occupancy_trace=occ_trace,
+                         engine="fused", dispatches=launches,
+                         host_syncs=launches, captures=len(built))

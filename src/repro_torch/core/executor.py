@@ -38,11 +38,12 @@ import dataclasses
 import threading
 import time
 import weakref
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.coherence import segment_reduce, segment_reduce_owned
 from repro_torch.core.config_space import (Coherence, Consistency,
                                            SystemConfig, UpdateProp)
@@ -62,7 +63,17 @@ from repro_torch.kernels.segment_reduce import (DEFAULT_PLAN,
                                                 gathered_segment_reduce)
 
 __all__ = ["EdgeContext", "RunResult", "run", "run_batch", "resolve_device",
-           "ExecutorStats", "STATS"]
+           "ExecutorStats", "STATS", "RUN_PHASES"]
+
+#: The host phases of a :func:`run`, in order, that
+#: ``RunResult.phases`` times and that a profiler sees as
+#: ``repro_torch.<phase>`` ranges under ``repro_torch.run``: the
+#: context, ``program.init``, the state's upload, the engine's lookup
+#: (warm-up and capture on a miss; the host engine's warm step), the
+#: engine's reset, the timed loop (``RunResult.seconds``) and the
+#: decoding of ``it`` and the traces with the state's clone.
+RUN_PHASES = ("run.context", "run.init", "run.upload", "run.engine",
+              "run.reset", "run.drive", "run.finish")
 
 
 @dataclasses.dataclass
@@ -560,6 +571,13 @@ class RunResult:
     #: stream ms (between CUDA events, issue gaps included) of the
     #: sentinels, certificates and snapshot copies.
     resilience: Optional[dict] = None
+    #: host seconds of each of :data:`RUN_PHASES` (0.0 for a phase the
+    #: engine lacks); ``phases["run.drive"]`` is ``seconds``.  Set by
+    #: :func:`run`; None for resilient, batched and gateway runs.
+    phases: Optional[Dict[str, float]] = None
+    #: engines this run built: 1 when the fused engine's ``"exec_fn"``
+    #: lookup missed (a warm-up and, on the card, a capture), else 0.
+    captures: int = 0
 
     def __post_init__(self):
         if self.outcome is None:
@@ -605,45 +623,53 @@ def _decode_traces(dirs: Optional[torch.Tensor],
 
 
 def _run_host(program: VertexProgram, ctx: EdgeContext, state,
-              limit: int) -> RunResult:
+              limit: int, phases: Dict[str, float]) -> RunResult:
     """One step per iteration plus a blocking convergence read between
     steps (``executor.py:705-755``).  One untimed step on a copy of the
     state builds the kernels and warms the caches first.  ``it`` reaches
     the step as a device int32 scalar, as the reference's traced
     counter: a view into one ``arange`` made before the timer, so the
     counter costs no launch per iteration.  Trace scalars stay on the
-    device and are read once, after the timer stops."""
-    its = torch.arange(max(limit, 1), dtype=torch.int32, device=ctx.device)
-    program.step(ctx, {k: t.clone() for k, t in state.items()}, its[0])
-    _synchronize(ctx.device)
+    device and are read once, after the timer stops.  ``phases``
+    receives the warm step as ``run.engine``, the timed loop as
+    ``run.drive`` and the decoding as ``run.finish``."""
+    with spans.phase(phases, "run.engine"):
+        its = torch.arange(max(limit, 1), dtype=torch.int32,
+                           device=ctx.device)
+        program.step(ctx, {k: t.clone() for k, t in state.items()}, its[0])
+        _synchronize(ctx.device)
     traced, occ_traced = _trace_flags(program, state)
     dir_raw: List[torch.Tensor] = []
     occ_raw: List[torch.Tensor] = []
     syncs = ctx.host_syncs
-    t0 = time.perf_counter()
-    it, done = 0, False
-    while it < limit:
-        new = program.step(ctx, state, its[it])
-        done_dev = program.converged(state, new)
-        state = new
-        it += 1
-        if traced:
-            dir_raw.append(state[FRONTIER_DIR_KEY])
-        if occ_traced:
-            occ_raw.append(state[FRONTIER_OCC_KEY])
-        done = ctx._read(done_dev)
-        if done:
-            break
-    _synchronize(ctx.device)
-    dt = time.perf_counter() - t0
-    STATS.add(it)
-    syncs = ctx.host_syncs - syncs
-    trace, occ_trace = _decode_traces(
-        torch.stack(dir_raw) if traced else None,
-        torch.stack(occ_raw) if occ_traced else None)
-    return RunResult(state=state, iterations=it, seconds=dt, converged=done,
-                     direction_trace=trace, occupancy_trace=occ_trace,
-                     engine="host", dispatches=it, host_syncs=syncs)
+    with spans.span(spans.PREFIX + "run.drive"):
+        t0 = time.perf_counter()
+        it, done = 0, False
+        while it < limit:
+            new = program.step(ctx, state, its[it])
+            done_dev = program.converged(state, new)
+            state = new
+            it += 1
+            if traced:
+                dir_raw.append(state[FRONTIER_DIR_KEY])
+            if occ_traced:
+                occ_raw.append(state[FRONTIER_OCC_KEY])
+            done = ctx._read(done_dev)
+            if done:
+                break
+        _synchronize(ctx.device)
+        dt = time.perf_counter() - t0
+    phases["run.drive"] = dt
+    with spans.phase(phases, "run.finish"):
+        STATS.add(it)
+        syncs = ctx.host_syncs - syncs
+        trace, occ_trace = _decode_traces(
+            torch.stack(dir_raw) if traced else None,
+            torch.stack(occ_raw) if occ_traced else None)
+        return RunResult(state=state, iterations=it, seconds=dt,
+                         converged=done, direction_trace=trace,
+                         occupancy_trace=occ_trace, engine="host",
+                         dispatches=it, host_syncs=syncs)
 
 
 def run(program: VertexProgram, graph: Graph, config: SystemConfig,
@@ -702,39 +728,53 @@ def run(program: VertexProgram, graph: Graph, config: SystemConfig,
     The resolved config keeps the caller's ``n_chunks``; its name and
     source are stamped on ``RunResult.config_name`` and
     ``config_source``.
+
+    ``RunResult.phases`` holds the host seconds of each of
+    :data:`RUN_PHASES`, and ``captures`` the engines the run built.
+    While a torch profiler runs, the call is a ``repro_torch.run`` range
+    with a ``repro_torch.<phase>`` range under it for each phase
+    (:mod:`repro_torch.spans`).
     """
     if engine not in ("fused", "host"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'fused' or 'host'")
-    device = resolve_device(device)
-    config, config_source = resolve_config(program, graph, config,
-                                           specialize)
-    if (checkpoint_every or retry is not None or fault_injector is not None
-            or checkpoint_dir is not None):
-        from repro_torch.core.resilience import run_resilient
-        res = run_resilient(
-            program, graph, config, key=key, max_iters=max_iters,
-            use_kernels=use_kernels,
-            sparse_edge_capacity=sparse_edge_capacity, engine=engine,
-            autotune=autotune, device=device,
-            checkpoint_every=checkpoint_every, retry=retry,
-            sentinels=sentinels, ring_capacity=ring_capacity,
-            fault_injector=fault_injector, checkpoint_dir=checkpoint_dir)
-        res.config_name = config.name
-        res.config_source = config_source
-        return res
-    ctx = EdgeContext.create(graph, config, use_kernels=use_kernels,
-                             sparse_edge_capacity=sparse_edge_capacity,
-                             autotune=autotune, device=device)
-    init = program.init(graph, key) if key is not None \
-        else program.init(graph)
-    state = {k: torch.as_tensor(t).to(device) for k, t in init.items()}
-    limit = max_iters or program.max_iters
-    if engine == "fused":
-        from repro_torch.core.capture import run_fused
-        res = run_fused(program, ctx, state, limit)
-    else:
-        res = _run_host(program, ctx, state, limit)
+    with spans.span(spans.PREFIX + "run"):
+        device = resolve_device(device)
+        config, config_source = resolve_config(program, graph, config,
+                                               specialize)
+        if (checkpoint_every or retry is not None
+                or fault_injector is not None or checkpoint_dir is not None):
+            from repro_torch.core.resilience import run_resilient
+            res = run_resilient(
+                program, graph, config, key=key, max_iters=max_iters,
+                use_kernels=use_kernels,
+                sparse_edge_capacity=sparse_edge_capacity, engine=engine,
+                autotune=autotune, device=device,
+                checkpoint_every=checkpoint_every, retry=retry,
+                sentinels=sentinels, ring_capacity=ring_capacity,
+                fault_injector=fault_injector, checkpoint_dir=checkpoint_dir)
+            res.config_name = config.name
+            res.config_source = config_source
+            return res
+        phases = dict.fromkeys(RUN_PHASES, 0.0)
+        with spans.phase(phases, "run.context"):
+            ctx = EdgeContext.create(
+                graph, config, use_kernels=use_kernels,
+                sparse_edge_capacity=sparse_edge_capacity,
+                autotune=autotune, device=device)
+        with spans.phase(phases, "run.init"):
+            init = program.init(graph, key) if key is not None \
+                else program.init(graph)
+        with spans.phase(phases, "run.upload"):
+            state = {k: torch.as_tensor(t).to(device)
+                     for k, t in init.items()}
+        limit = max_iters or program.max_iters
+        if engine == "fused":
+            from repro_torch.core.capture import run_fused
+            res = run_fused(program, ctx, state, limit, phases)
+        else:
+            res = _run_host(program, ctx, state, limit, phases)
+    res.phases = phases
     res.config_name = config.name
     res.config_source = config_source
     return res

@@ -42,6 +42,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.mesh_compat import (active_device_mesh, constrain,
                                             is_dtensor, serving)
 from repro_torch.models.transformer import LMConfig
+from repro_torch.spans import span
 
 __all__ = ["MoEConfig", "MoELayer", "MoEBlock", "init_moe_layer",
            "moe_apply", "capacity", "init_moe_lm", "abstract_moe_params",
@@ -193,12 +194,12 @@ STAGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
 
 
 def _ranges():
-    """A generator that opens ``torch.profiler.record_function`` for each
+    """A generator that opens a :class:`~repro_torch.spans.span` for each
     stage of :data:`STAGES` in turn, closing the one before, so a
-    profiled run can split the layer's device time by stage (each range
-    costs about a microsecond of host time when no profiler runs)."""
+    profiled run can split the layer's device time by stage (with no
+    profiler running a range is one flag check)."""
     for name in STAGES:
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
 
 
@@ -429,7 +430,7 @@ def _moe_block(cfg: MoEConfig, p: MoEBlock, x: torch.Tensor, positions,
     lay, _ = T._layout(cfg, sharded)  # the batch layout, as the dense block
     x = lay(x)
     h = lay(T._norm(cfg, p.ln1, x))
-    with torch.profiler.record_function("moe.attention"):
+    with span("moe.attention"):
         a, kv_out = T._attention(cfg, p.attn, h, positions, kv, kv_len,
                                  impl, sharded)
     mid = x + lay(a)
