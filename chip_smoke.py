@@ -32,6 +32,12 @@ script exits non-zero:
      ``scatter_reduce``, with its time over the kernel's
      (``library_over_ms``) and the bound's share of the kernel's time
      (``bound_share``).
+   - the gathered push reduce (``gathered_segment_reduce``, no TPU
+     counterpart) at urand19's slice, 1,198,333 slots and V = 524,288:
+     float32 and int32 min with 0, 5 and 100 % of the slots live,
+     bit-equal to its plain version (the trash-row scatter it replaced)
+     and to ``scatter_reduce_`` alone; the rows' ``launches`` are the
+     graph path's.
    - K3 on a 16,000,000-row table, D=128: P=1 sum at B=512 and
      B=262,144 (bit-equal: a bag of one row is a copy), P=8 mean at
      B=65,536 (rtol=atol=1e-5); ``F.embedding_bag``.
@@ -51,7 +57,7 @@ script exits non-zero:
      tolerance.  The bound counts the pairs the mask leaves visible.
    Every row carries ``bound_share`` (the bound over the kernel's time)
    and ``library_over_ms`` (the library call's time over the kernel's).
-4. graph path: with the K1/K2 counts set to 0, run every app of the
+4. graph path: with the K1/K2 and gathered counts set to 0, run every app of the
    registry through ``repro_torch.core.run`` with ``use_kernels=True``:
    BFS, SSSP, PR, CC, BC, MIS and CLR under SD1 (owned kernel) and DD1
    (both kernels, the sparse gather and the device-side direction
@@ -415,11 +421,15 @@ SOURCES = {
     "seg_sum": "src/repro_torch/kernels/segment_reduce/csrc/segment_reduce.cu",
     "seg_minmax":
         "src/repro_torch/kernels/segment_reduce/csrc/segment_reduce.cu",
+    "gathered_reduce":
+        "src/repro_torch/kernels/segment_reduce/csrc/segment_reduce.cu",
     "embag": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"}
 REPLACES = {"seg_sum": "src/repro/kernels/segment_reduce/kernel.py:102",
             "seg_minmax": "src/repro/kernels/segment_reduce/kernel.py:154",
+            "gathered_reduce": "none (the reference scatters with XLA: "
+                               "src/repro/kernels/segment_reduce/sparse.py)",
             "embag": "src/repro/kernels/embedding_bag/kernel.py:55",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:68"}
 CASES = [("seg_sum", torch.float32, "sum"),
@@ -677,6 +687,12 @@ GATHER_CASE = dict(n=65_536, segments=4_096, seed=12)
 #: each partial sum rounds by at most 2**-24 of its size (< 8 here), so
 #: the two differ by a few 1e-6; min, max and int32 are exact
 GATHER_SUM_TOL = dict(rtol=1e-5, atol=1e-5)
+#: phase 3: the gathered kernel at urand19's slice (cap_e = ceil(E / 14)
+#: of GAP urand at scale 19, V = 524,288), SSSP's float32 min and BFS's
+#: int32 min, with 0, 5 and 100 % of the slots live: a prefix, as the
+#: gather fills them, the rest -1
+GATHER_ROWS = dict(slots=1_198_333, segments=524_288, live=(0.0, 0.05, 1.0),
+                   seed=31)
 LM_DEMO_STEPS = 20
 
 #: phase 4h: Fig. 5 at Table II's own sizes, and section (a) of Table II
@@ -2757,6 +2773,52 @@ def kernel_phase(graph, dev, flush) -> list:
     return rows
 
 
+def gathered_rows(dev, flush) -> list:
+    """The gathered push reduce (``gathered_segment_reduce``) at
+    :data:`GATHER_ROWS`: the kernel (the identity fill, the launch and,
+    for a float, the key decode), its plain version (the trash-row
+    scatter it replaced) and ``scatter_reduce_`` alone, all bit-equal.
+    Bytes: every id, each live slot's value and the V results, 4 B each."""
+    from repro_torch.kernels.segment_reduce import (
+        gathered_segment_reduce, gathered_segment_reduce_plain, identity)
+    c = GATHER_ROWS
+    n, v = c["slots"], c["segments"]
+    rng = np.random.default_rng(c["seed"])
+    rows = []
+    for dtype in (torch.float32, torch.int32):
+        for live in c["live"]:
+            n_live = round(n * live)
+            ids = np.full(n, -1, np.int32)
+            ids[:n_live] = rng.integers(0, v, n_live)
+            vals = torch.from_numpy(rng.integers(1, 256, n)).to(dev, dtype)
+            ids = torch.from_numpy(ids).to(dev)
+            trash = torch.where(ids < 0, v, ids).long()
+
+            def kernel():
+                return gathered_segment_reduce(vals, ids, v, "min")
+
+            def plain():
+                return gathered_segment_reduce_plain(vals, ids, v, "min")
+
+            def library():
+                out = torch.full((v + 1,), identity("min", dtype),
+                                 dtype=dtype, device=dev)
+                return out.scatter_reduce_(0, trash, vals, "amin")[:v]
+
+            got, want, lib_out = kernel(), plain(), library()
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(lib_out, want)):
+                raise AssertionError(f"gathered {dtype} live {live}: not "
+                                     "bit-equal to plain")
+            rows.append(_row(
+                f"gathered_reduce[{str(dtype)[6:]},min,live={live:.0%},"
+                f"S={n},V={v}]", "gathered_reduce", 0.0,
+                time_ms(kernel, flush), time_ms(plain, flush),
+                time_ms(library, flush), 4 * (n + n_live + v), n_live,
+                F32_OPS_PER_S, slots=n, segments=v, live_share=live))
+    return rows
+
+
 def sweep_phase(graph, dev, flush) -> list:
     """K1/K2 over chunk sizes x threads per CTA on the AMZ stand-in, each
     configuration held against the plain version first."""
@@ -2904,10 +2966,12 @@ def main_path(graph, dev) -> tuple:
     both engines; the K1/K2 counts are set to 0 first and read last."""
     from repro_torch.algorithms import REGISTRY
     from repro_torch.core import SystemConfig, run
-    from repro_torch.kernels.segment_reduce import seg_minmax, seg_sum
+    from repro_torch.kernels.segment_reduce import (gathered_segment_reduce,
+                                                    seg_minmax, seg_sum)
     kernels = {"seg_sum": seg_sum, "seg_minmax": seg_minmax}
     seg_sum.launches = 0
     seg_minmax.launches = 0
+    gathered_segment_reduce.launches = 0
     cells = []
     for cfg, apps in GRAPH_CELLS:
         for app in apps:
@@ -2943,7 +3007,8 @@ def main_path(graph, dev) -> tuple:
                     fused_max_allocated=fused_peak,
                     fused_reserved=fused_res)))
     launches = {"seg_sum": seg_sum.launches,
-                "seg_minmax": seg_minmax.launches}
+                "seg_minmax": seg_minmax.launches,
+                "gathered_reduce": gathered_segment_reduce.launches}
     log(f"main path launches: {json.dumps(launches)}")
     device_launches = {k: sum(c["device_launches"] for c in cells
                               if c["kernel"] == k) for k in kernels}
@@ -4637,6 +4702,7 @@ def main() -> int:
     clock = _Clock()
     # 3. kernels against their plain versions
     rows = kernel_phase(graph, dev, flush)
+    rows += gathered_rows(dev, flush)
     rows += embag_rows(dev, flush)
     free_device_memory()
     rows += attention_rows(dev, flush)

@@ -48,7 +48,8 @@ _RUN_ROWS: List[Row] = [
      "(on a CPU device their plain versions)"),
     (("sparse_edge_capacity",), "`ceil(E/alpha)` \\| `0` \\| any int",
      "static gather capacity of the sparse frontier path (0 disables "
-     "it)"),
+     "it), whose reduce is a hand-written kernel on a CUDA device "
+     "whatever `use_kernels` says"),
     (("autotune",), '`"off"` \\| `"heuristic"` \\| `"measure"`',
      "K1/K2 plans: the default (512 threads per CTA) / the degree "
      "heuristic at 256 threads / the fastest candidate of a sweep timed "

@@ -14,7 +14,8 @@ from repro_torch.kernels.segment_reduce.ref import (identity,
                                                     segment_reduce_ref,
                                                     segment_sum_ref)
 from repro_torch.kernels.segment_reduce.sparse import (
-    gathered_segment_reduce, gathered_segment_reduce_ref)
+    gathered_segment_reduce, gathered_segment_reduce_plain,
+    gathered_segment_reduce_ref)
 
 __all__ = ["BlockedSegmentReducer", "TilingPlan", "DEFAULT_PLAN",
            "bin_edges_by_block", "coarsen_block_ptr", "plan_tiles",
@@ -22,4 +23,5 @@ __all__ = ["BlockedSegmentReducer", "TilingPlan", "DEFAULT_PLAN",
            "seg_sum", "seg_sum_plain", "seg_minmax", "seg_minmax_plain",
            "SOURCE", "identity", "segment_reduce_ref",
            "segment_sum_ref", "segment_min_ref", "segment_max_ref",
-           "gathered_segment_reduce", "gathered_segment_reduce_ref"]
+           "gathered_segment_reduce", "gathered_segment_reduce_plain",
+           "gathered_segment_reduce_ref"]

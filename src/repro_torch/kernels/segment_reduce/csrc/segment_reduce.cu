@@ -4,6 +4,8 @@
 // src/repro/kernels/segment_reduce/kernel.py:
 //   seg_sum_{f32,i32}      <- seg_sum_pallas     (_sum_kernel, line 80)
 //   seg_minmax_{f32,i32}   <- seg_minmax_pallas  (_minmax_kernel, line 132)
+// and, replacing no TPU kernel, the gathered push reduce of sparse.py:
+//   gathered_reduce_{f32,i32} (its own comment, below the blocked kernel)
 //
 // What it computes.  Edges arrive binned by destination block:
 // block_ptr[b] .. block_ptr[b+1] are the edges whose segment id lies in
@@ -331,6 +333,214 @@ int launch(const void* vals, const int* ids, const int* block_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The gathered push reduce: gathered_reduce_{f32,i32}.
+//
+// Replaces no TPU kernel: the reference reduces the gathered slice with a
+// plain XLA scatter (src/repro/kernels/segment_reduce/sparse.py).  It
+// backs gathered_segment_reduce (sparse.py) on the card, because a
+// library scatter that sends the dead slots to one trash row serialises
+// on that row (see Design).
+//
+// What it computes.  vals[s, :] (D = 1 or more words a slot) is reduced
+// into out[ids[s], :] for every slot s whose id lies in [0, num_segments);
+// any other id (-1 for padding past the frontier's edges and for edges
+// whose predicate failed) marks a dead slot.  out comes from the caller,
+// filled with the identity: the value for a sum and for int32 min/max,
+// the key of +-inf for a float min/max (see below).
+//
+// Design.  Most slots of a sparse iteration are dead: the gather fills
+// every slot past the frontier's edge count with -1.  A scatter that
+// sends them to one trash row serialises a million atomic updates on one
+// address.  Here a dead slot makes no atomic and no store, and its value
+// is never loaded: there is no trash row.  One launch covers the whole
+// slice.  At D = 1 each thread reads 4 consecutive slots' ids with one
+// 16-byte load; a warp whose 128 slots are all dead (__ballot_sync == 0)
+// goes on to the next without loading a value.  A live slot's thread
+// loads its values (16 bytes at once where all 4 slots exist) and applies
+// one global atomic per live slot: atomicAdd for a sum, atomicMin/Max on
+// int32 for a min/max.  At D > 1, L lanes (D rounded up to a power of
+// two, at most 32) share a slot as in the blocked kernel, and a dead slot
+// skips its row.  A float min/max runs on K2's order-preserving int32
+// keys; a second small launch decodes the [num_segments, D] keys back to
+// floats in place.
+//
+// What bounds it.  The ids are read once (4 bytes a slot) and the values
+// of live slots once (4*D bytes each): at most 8 bytes a slot at D = 1,
+// about 9.6 MB over urand19's 1,198,333 slots; the atomics land in out,
+// which (2 MB at V = 524,288) stays in L2.  The caller's fill of out and
+// the decode read and write V*D words once each.  With few live slots the
+// launch is bounded by reading the ids and by the fill.
+//
+// Exactness.  min and max are exact in any order of the atomics; floats
+// order -0.0 below +0.0, and a row that receives a NaN comes out NaN, as
+// K2 gives them.  The int32 sum is exact (it wraps as two's complement
+// does, in any order).  The float sum is not: the atomics land in an
+// order that changes from run to run.
+
+constexpr int kGatherThreads = 256;
+// consecutive slots a thread reads at D = 1 (one 16-byte load of ids)
+constexpr int kGatherSlots = 4;
+constexpr long long kMaxBlocks = 1 << 20;
+
+template <class Op>
+__global__ void __launch_bounds__(kGatherThreads)
+gathered_reduce_kernel(const typename Op::In* __restrict__ vals,
+                       const int* __restrict__ ids, long long n_slots,
+                       typename Op::Acc* __restrict__ out,
+                       int num_segments) {
+  using In = typename Op::In;
+  const int lane = threadIdx.x & 31;
+  // 16-byte loads need both arrays aligned; a slice may start anywhere
+  const bool aligned = ((reinterpret_cast<unsigned long long>(vals) |
+                         reinterpret_cast<unsigned long long>(ids)) &
+                        15) == 0;
+  const long long stride =
+      static_cast<long long>(gridDim.x) * blockDim.x * kGatherSlots;
+  // warp-uniform: every lane of a warp runs the same iterations
+  for (long long w0 = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                       (threadIdx.x & ~31)) *
+                      kGatherSlots;
+       w0 < n_slots; w0 += stride) {
+    const long long s0 = w0 + lane * kGatherSlots;
+    const bool whole = aligned && s0 + kGatherSlots <= n_slots;
+    int id[kGatherSlots];
+    if (whole) {
+      const int4 q = *reinterpret_cast<const int4*>(ids + s0);
+      id[0] = q.x;
+      id[1] = q.y;
+      id[2] = q.z;
+      id[3] = q.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < kGatherSlots; ++u) {
+        id[u] = s0 + u < n_slots ? ids[s0 + u] : -1;
+      }
+    }
+    unsigned live = 0;
+#pragma unroll
+    for (int u = 0; u < kGatherSlots; ++u) {
+      // one compare drops both id < 0 and id >= num_segments
+      live |= (static_cast<unsigned>(id[u]) <
+               static_cast<unsigned>(num_segments))
+              << u;
+    }
+    if (__ballot_sync(kFull, live != 0) == 0) continue;  // a dead warp
+    if (live == 0) continue;
+    In v[kGatherSlots];
+    if (whole) {
+      const Quad<In> q = load_quad(vals + s0);
+#pragma unroll
+      for (int u = 0; u < kGatherSlots; ++u) v[u] = q.w[u];
+    } else {
+#pragma unroll
+      for (int u = 0; u < kGatherSlots; ++u) {
+        v[u] = (live >> u) & 1u ? vals[s0 + u] : In();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherSlots; ++u) {
+      if ((live >> u) & 1u) Op::atomic(&out[id[u]], Op::from(v[u]));
+    }
+  }
+}
+
+// D > 1: lanes = 1 << log2_lanes lanes share a slot, 32 / lanes slots a
+// warp step; a lane loops over the features f = s, s + lanes, ..
+template <class Op>
+__global__ void __launch_bounds__(kGatherThreads)
+gathered_reduce_rows_kernel(const typename Op::In* __restrict__ vals,
+                            const int* __restrict__ ids, long long n_slots,
+                            int d, typename Op::Acc* __restrict__ out,
+                            int num_segments, int log2_lanes) {
+  const int lane = threadIdx.x & 31;
+  const int lanes = 1 << log2_lanes;
+  const int group = 32 >> log2_lanes;
+  const int s = lane & (lanes - 1);
+  const long long stride =
+      static_cast<long long>(gridDim.x) * (blockDim.x >> 5) * group;
+  for (long long slot = (static_cast<long long>(blockIdx.x) *
+                             (blockDim.x >> 5) +
+                         (threadIdx.x >> 5)) *
+                            group +
+                        (lane >> log2_lanes);
+       slot < n_slots; slot += stride) {
+    const int id = ids[slot];
+    if (static_cast<unsigned>(id) >= static_cast<unsigned>(num_segments)) {
+      continue;  // a dead slot: no value load, no atomic
+    }
+    const typename Op::In* __restrict__ row = vals + slot * d;
+    typename Op::Acc* __restrict__ dst = out + static_cast<long long>(id) * d;
+    for (int f = s; f < d; f += lanes) Op::atomic(&dst[f], Op::from(row[f]));
+  }
+}
+
+// float min/max: out's int32 keys back to float bits, in place
+__global__ void __launch_bounds__(kGatherThreads)
+key_decode_kernel(int* __restrict__ out, long long n) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    out[i] = __float_as_int(key_float(out[i]));
+  }
+}
+
+// a grid of at most kMaxBlocks blocks; the kernels stride over the rest
+unsigned blocks_for(long long items, long long per_block) {
+  const long long b = (items + per_block - 1) / per_block;
+  return static_cast<unsigned>(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+template <class Op>
+int launch_gathered(const void* vals, const int* ids, long long n_slots,
+                    int d, void* out, int num_segments, bool decode,
+                    cudaStream_t stream) {
+  using In = typename Op::In;
+  using Acc = typename Op::Acc;
+  if (n_slots > 0 && num_segments > 0 && d > 0) {
+    if (d == 1) {
+      gathered_reduce_kernel<Op>
+          <<<blocks_for(n_slots, kGatherThreads * kGatherSlots),
+             kGatherThreads, 0, stream>>>(static_cast<const In*>(vals), ids,
+                                          n_slots, static_cast<Acc*>(out),
+                                          num_segments);
+    } else {
+      int log2_lanes = 0;
+      while (log2_lanes < 5 && (1 << log2_lanes) < d) ++log2_lanes;
+      const long long per_block = (kGatherThreads / 32) * (32 >> log2_lanes);
+      gathered_reduce_rows_kernel<Op>
+          <<<blocks_for(n_slots, per_block), kGatherThreads, 0, stream>>>(
+              static_cast<const In*>(vals), ids, n_slots, d,
+              static_cast<Acc*>(out), num_segments, log2_lanes);
+    }
+  }
+  const long long n_out = static_cast<long long>(num_segments) * d;
+  if (decode && n_out > 0) {
+    key_decode_kernel<<<blocks_for(n_out, kGatherThreads), kGatherThreads,
+                        0, stream>>>(static_cast<int*>(out), n_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kind: 0 sum, 1 min, 2 max
+template <bool IS_FLOAT, class Sum>
+int gathered(const void* vals, const int* ids, long long n_slots, int d,
+             void* out, int num_segments, int kind, cudaStream_t stream) {
+  switch (kind) {
+    case 0:
+      return launch_gathered<Sum>(vals, ids, n_slots, d, out, num_segments,
+                                  false, stream);
+    case 1:
+      return launch_gathered<MinMax<IS_FLOAT, true>>(
+          vals, ids, n_slots, d, out, num_segments, IS_FLOAT, stream);
+    case 2:
+      return launch_gathered<MinMax<IS_FLOAT, false>>(
+          vals, ids, n_slots, d, out, num_segments, IS_FLOAT, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -386,6 +596,23 @@ int seg_minmax_i32(const int* vals, const int* ids, const int* block_ptr,
                                             n_chunks, chunk_e, out, partials,
                                             counters, block_size,
                                             num_segments, d, threads, st);
+}
+
+// The gathered push reduce.  out is [num_segments, d], filled by the
+// caller with the identity (for a float min/max: the identity's int32
+// key, decoded to float bits in place before the call returns).
+int gathered_reduce_f32(const float* vals, const int* ids, long long n_slots,
+                        int d, void* out, int num_segments, int kind,
+                        void* stream) {
+  return gathered<true, SumF32>(vals, ids, n_slots, d, out, num_segments,
+                                kind, static_cast<cudaStream_t>(stream));
+}
+
+int gathered_reduce_i32(const int* vals, const int* ids, long long n_slots,
+                        int d, void* out, int num_segments, int kind,
+                        void* stream) {
+  return gathered<false, SumI32>(vals, ids, n_slots, d, out, num_segments,
+                                 kind, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -26,6 +26,10 @@ tensor it launches the kernel or raises.  Each wrapper counts its
 launches in ``<wrapper>.launches``.  The TPU kernels' tiling plan
 (:func:`plan_tiles`) is kept as the reference's exact copy.
 
+The same library holds the gathered push reduce that
+:func:`repro_torch.kernels.segment_reduce.sparse.gathered_segment_reduce`
+launches on the card.
+
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the root of the checkout, under a name keyed on
 the source's hash (:mod:`repro_torch.kernels._build`), and bound with
@@ -178,8 +182,14 @@ def _library() -> ctypes.CDLL:
     lib.seg_sum_i32.argtypes = head + [i, p]
     lib.seg_minmax_f32.argtypes = head + [i, i, p]
     lib.seg_minmax_i32.argtypes = head + [i, i, p]
+    # the gathered push reduce of sparse.py: vals, ids, n_slots, d, out,
+    # num_segments, kind, stream
+    gathered = [p, p, ctypes.c_longlong, i, p, i, i, p]
+    lib.gathered_reduce_f32.argtypes = gathered
+    lib.gathered_reduce_i32.argtypes = gathered
     for fn in (lib.seg_sum_f32, lib.seg_sum_i32, lib.seg_minmax_f32,
-               lib.seg_minmax_i32):
+               lib.seg_minmax_i32, lib.gathered_reduce_f32,
+               lib.gathered_reduce_i32):
         fn.restype = ctypes.c_int
     return lib
 

@@ -1894,26 +1894,152 @@ def test_stats_counts_each_engine_with_the_kernels_on_the_card(
                 assert torch.equal(res.state[key], want), key
 
 
+#: the gathered reduce's cases on the card: every kind and type on
+#: random slots, all dead, one segment, ids past the segments, [S, D]
+#: rows, a slice that starts off its 16-byte alignment and a CUDA graph
+#: replay; float specials (signed zeros, NaNs) for the float min and max
+GATHER_CASES = [(case, dtype, kind)
+                for case in ("random", "all_dead", "one_segment",
+                             "past_segments", "rows", "unaligned", "replay")
+                for dtype in ("float32", "int32")
+                for kind in ("sum", "min", "max")] + [
+    ("specials", "float32", "min"), ("specials", "float32", "max")]
+
+
+def _gather_inputs(rng, case, dtype, n, segs):
+    ids = rng.integers(-3, segs + 3, n).astype(np.int32)
+    if case == "all_dead":
+        ids = np.where(rng.random(n) < 0.5, -1, segs + 7).astype(np.int32)
+    elif case == "one_segment":
+        ids[rng.random(n) < 0.5] = segs // 2
+        ids[ids != segs // 2] = -1
+    elif case == "past_segments":
+        ids = np.where(rng.random(n) < 0.5, segs + rng.integers(0, 9, n),
+                       ids).astype(np.int32)
+    shape = (n, 4) if case == "rows" else (n,)
+    vals = (rng.standard_normal(shape).astype(np.float32)
+            if dtype == "float32"
+            else rng.integers(-1000, 1000, shape).astype(np.int32))
+    return vals, ids
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["sum", "min", "max"])
-@pytest.mark.parametrize("dtype", ["float32", "int32"])
-def test_gathered_reduce_matches_its_oracle_on_the_card(cuda_device, dtype,
-                                                        kind):
-    """Ids below 0 and past the segments dropped; exact but for the
-    float32 sum, which the card adds in a run-dependent order."""
+@pytest.mark.parametrize("case,dtype,kind", GATHER_CASES)
+def test_gathered_reduce_matches_its_oracle_on_the_card(cuda_device, case,
+                                                        dtype, kind):
+    """One kernel launch a call: ids below 0 and past the segments
+    dropped; exact but for the float32 sum, which the card adds in a
+    run-dependent order; float min/max bit-equal to K2's key order
+    (-0.0 below +0.0, a NaN takes its row)."""
     from repro_torch.kernels.segment_reduce import (
         gathered_segment_reduce, gathered_segment_reduce_ref)
+    from repro_torch.kernels.segment_reduce.kernel import _flip, _key
     rng = np.random.default_rng(5)
-    n, segs = 20_000, 1_000
-    ids = rng.integers(-3, segs + 3, n).astype(np.int32)
-    vals = (rng.standard_normal(n).astype(np.float32) if dtype == "float32"
-            else rng.integers(-1000, 1000, n).astype(np.int32))
-    got = gathered_segment_reduce(
-        torch.from_numpy(vals).to(cuda_device),
-        torch.from_numpy(ids).to(cuda_device), segs, kind).cpu().numpy()
+    n, segs = 20_001, 1_000
+    vals, ids = _gather_inputs(rng, case, dtype, n, segs)
+    if case == "specials":
+        # four specials a segment, so each row's bits come from its keys,
+        # and dead slots that carry NaNs
+        specials = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf],
+                            np.float32)
+        ids = np.concatenate([np.tile(np.arange(segs), 4),
+                              np.where(ids < 0, -1, segs + 1)])
+        ids = ids.astype(np.int32)
+        vals = np.concatenate([rng.choice(specials, 4 * segs),
+                               np.full(n, np.nan)]).astype(np.float32)
+    t_vals = torch.from_numpy(vals).to(cuda_device)
+    t_ids = torch.from_numpy(ids).to(cuda_device)
+    if case == "unaligned":  # views one word into their allocations
+        t_vals = torch.cat([t_vals[:1], t_vals])[1:]
+        t_ids = torch.cat([t_ids[:1], t_ids])[1:]
+        assert t_vals.data_ptr() % 16 and t_ids.data_ptr() % 16
+    launches = gathered_segment_reduce.launches
+    if case == "replay":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            gathered_segment_reduce(t_vals, t_ids, segs, kind)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = gathered_segment_reduce(t_vals, t_ids, segs, kind)
+        for _ in range(2):  # new inputs in the captured buffers
+            vals, ids = _gather_inputs(rng, "random", dtype, n, segs)
+            t_vals.copy_(torch.from_numpy(vals))
+            t_ids.copy_(torch.from_numpy(ids))
+            graph.replay()
+            torch.cuda.synchronize()
+            got = out.cpu().numpy()
+            want = gathered_segment_reduce_ref(vals, ids, segs, kind)
+            _assert_gathered(got, want, dtype, kind)
+        assert gathered_segment_reduce.launches == launches + 2
+        return
+    got = gathered_segment_reduce(t_vals, t_ids, segs, kind).cpu().numpy()
+    assert gathered_segment_reduce.launches == launches + 1
+    if case == "specials":
+        keys = _key(torch.from_numpy(vals), kind).numpy()
+        want_keys = gathered_segment_reduce_ref(keys, ids, segs, kind)
+        want = _flip(torch.from_numpy(want_keys)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want)
+        assert np.isnan(got).any() and not np.isnan(got).all()
+        zeros = np.signbit(got[got == 0])
+        assert zeros.any() and not zeros.all()  # rows of -0.0 and of +0.0
+        return
     want = gathered_segment_reduce_ref(vals, ids, segs, kind)
-    assert got.dtype == want.dtype
+    _assert_gathered(got, want, dtype, kind)
+
+
+def _assert_gathered(got, want, dtype, kind):
+    assert got.dtype == want.dtype and got.shape == want.shape
     if dtype == "float32" and kind == "sum":
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["float64", "int64_ids", "three_dims",
+                                  "strided", "kind"])
+def test_gathered_reduce_refuses_what_the_kernel_does_not_take(cuda_device,
+                                                               what):
+    from repro_torch.kernels.segment_reduce import gathered_segment_reduce
+    vals = torch.ones(64, device=cuda_device)
+    ids = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    kind = "min"
+    if what == "float64":
+        vals = vals.double()
+    elif what == "int64_ids":
+        ids = ids.long()
+    elif what == "three_dims":
+        vals = vals.reshape(4, 4, 4)
+        ids = ids[:4]
+    elif what == "strided":
+        vals = torch.ones(128, device=cuda_device)[::2]
+    else:
+        kind = "mean"
+    launches = gathered_segment_reduce.launches
+    with pytest.raises((TypeError, ValueError)):
+        gathered_segment_reduce(vals, ids, 8, kind)
+    assert gathered_segment_reduce.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["fused", "host"])
+@pytest.mark.parametrize("app", ["BFS", "SSSP"])
+def test_gathered_kernel_runs_on_the_main_path(cuda_device, engine_graph,
+                                               engine, app):
+    """Under DD1 the sparse push iterations reduce through the kernel,
+    and the run equals the CPU's bit for bit."""
+    from repro_torch.kernels.segment_reduce import gathered_segment_reduce
+    config = SystemConfig.from_name("DD1")
+    launches = gathered_segment_reduce.launches
+    gpu = run(REGISTRY[app](), engine_graph, config, use_kernels=True,
+              engine=engine, device=cuda_device)
+    cpu = run(REGISTRY[app](), engine_graph, config, use_kernels=True,
+              engine=engine, device="cpu")
+    assert any(o >= 0 for o in gpu.occupancy_trace)  # a sparse iteration
+    assert gathered_segment_reduce.launches > launches
+    assert gpu.iterations == cpu.iterations
+    assert gpu.occupancy_trace == cpu.occupancy_trace
+    for key, want in cpu.state.items():
+        assert torch.equal(gpu.state[key].cpu(), want), (app, key)

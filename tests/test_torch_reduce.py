@@ -139,6 +139,47 @@ def test_gathered_reduce_matches_reference(splits, kind, dtype):
         np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+@pytest.mark.parametrize("d", [1, 4])
+def test_gathered_reduce_on_the_cpu_never_loads_the_kernels(monkeypatch,
+                                                            splits, kind, d):
+    """A CPU tensor takes the plain scatter, which equals the numpy
+    oracle (``[S]`` and ``[S, D]``), and never opens the CUDA library."""
+    from repro_torch.kernels.segment_reduce import (
+        gathered_segment_reduce_ref, kernel)
+
+    def no_library():
+        raise AssertionError("the CPU path opened the CUDA library")
+
+    monkeypatch.setattr(kernel, "_library", no_library)
+    monkeypatch.setattr(gathered_segment_reduce, "launches", 0)
+    rng = np.random.default_rng(31 + splits + d)
+    cap, v = 300, 90
+    ids = rng.integers(-2, v + 2, cap).astype(np.int32)
+    vals = rng.integers(-1000, 1000, (cap, d)).astype(np.int32)
+    vals = vals if d > 1 else vals[:, 0]
+    got = gathered_segment_reduce(torch.from_numpy(vals),
+                                  torch.from_numpy(ids), v, kind,
+                                  plan=TilingPlan(gather_splits=splits))
+    np.testing.assert_array_equal(
+        got.numpy(), gathered_segment_reduce_ref(vals, ids, v, kind))
+    assert gathered_segment_reduce.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["min", "max"])
+def test_gathered_identity_keys_decode_to_infinities(kind):
+    """The card's float min/max fills ``out`` with the key of +-inf:
+    K2's order-preserving map, which the kernel decodes in place."""
+    from repro_torch.kernels.segment_reduce import kernel, sparse
+    key = torch.tensor(sparse._IDENT_KEY[kind], dtype=torch.int32)
+    assert kernel._flip(key).view(torch.float32).item() == (
+        float("inf") if kind == "min" else float("-inf"))
+    # every finite float's key lies on the right side of the identity's
+    keys = kernel._key(torch.tensor([-3e38, -0.0, 0.0, 3e38]), kind)
+    assert bool(((keys < key) if kind == "min" else (keys > key)).all())
+
+
 def test_segment_reduce_ref_drops_out_of_range_ids():
     vals = torch.tensor([1.0, 2.0, 4.0, 8.0])
     ids = torch.tensor([0, -1, 3, 1])
