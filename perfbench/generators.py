@@ -1,12 +1,13 @@
-"""The GAP Benchmark Suite's generated graphs, in torch on one device.
+"""The benchmark's graphs, made in torch on one device.
 
-Beamer, Asanovic, Patterson, "The GAP Benchmark Suite",
-arXiv:1508.03619: "kron" is the Graph500 Kronecker generator
-(A/B/C = 0.57/0.19/0.19) and "urand" draws both endpoints of every edge
-uniformly; both make ``edge_factor * 2**scale`` edges, which are then
-symmetrised with self-loops and duplicates removed.  SSSP's weights are
-uniform integers in ``[1, 255]``, drawn once per generated edge so that
-both directions of an edge carry the same weight; a duplicate keeps the
+A configuration names its generator by ``"generator"``, and the graph
+is drawn by ``graphs/<generator>.py`` (:mod:`perfbench.graphs`), found
+by file: its ``n_nodes(cfg)`` is the vertex count and its
+``edges(cfg, gen, device)`` the undirected draw.  What every graph
+shares is here: the edges are symmetrised with self-loops and
+duplicates removed; SSSP's weights are uniform integers in
+``cfg["weights"]``, drawn once per generated edge so that both
+directions of an edge carry the same weight, and a duplicate keeps the
 smallest.
 
 The structure (edges, weights and the SSSP sources) comes from the
@@ -18,12 +19,14 @@ order of edges, blocks and chunks.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
 
-__all__ = ["Coo", "GENERATORS", "generate", "kron_edges", "urand_edges",
-           "symmetrize"]
+from perfbench.registry import HERE, load_module
+
+__all__ = ["Coo", "generate", "symmetrize"]
 
 
 @dataclasses.dataclass
@@ -40,42 +43,6 @@ class Coo:
     @property
     def n_edges(self) -> int:
         return int(self.src.shape[0])
-
-
-def kron_edges(scale: int, edge_factor: int, a: float, b: float, c: float,
-               gen: torch.Generator, device) -> tuple:
-    """``edge_factor * 2**scale`` Kronecker edges: at every level one
-    uniform draw picks a quadrant with probabilities a, b, c and
-    ``1 - a - b - c``, which sets one bit of the source and of the
-    target."""
-    m = edge_factor << scale
-    src = torch.zeros(m, dtype=torch.int64, device=device)
-    dst = torch.zeros(m, dtype=torch.int64, device=device)
-    cuts = torch.tensor([a, a + b, a + b + c], device=device)
-    for level in range(scale):
-        u = torch.rand(m, generator=gen, device=device)
-        quad = (u[:, None] > cuts).sum(1)
-        src |= (quad >> 1) << level
-        dst |= (quad & 1) << level
-    return src, dst
-
-
-def urand_edges(scale: int, edge_factor: int, gen: torch.Generator,
-                device) -> tuple:
-    """``edge_factor * 2**scale`` edges with uniform endpoints."""
-    m, v = edge_factor << scale, 1 << scale
-    src = torch.randint(0, v, (m,), generator=gen, device=device)
-    dst = torch.randint(0, v, (m,), generator=gen, device=device)
-    return src, dst
-
-
-GENERATORS = {
-    "kron": lambda cfg, gen, dev: kron_edges(
-        cfg["scale"], cfg["edge_factor"], cfg["a"], cfg["b"], cfg["c"], gen,
-        dev),
-    "urand": lambda cfg, gen, dev: urand_edges(
-        cfg["scale"], cfg["edge_factor"], gen, dev),
-}
 
 
 def symmetrize(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
@@ -98,14 +65,17 @@ def symmetrize(src: torch.Tensor, dst: torch.Tensor, weight: torch.Tensor,
     return pair // n_nodes, pair % n_nodes, key & 255
 
 
-def generate(cfg: dict, seed: int, n_sources: int, device) -> Coo:
+def generate(cfg: dict, seed: int, n_sources: int, device,
+             here: Path = HERE) -> Coo:
     """The graph of configuration ``cfg`` labelled by ``seed``, with
-    ``n_sources`` sources among the vertices of nonzero degree."""
+    ``n_sources`` sources among the vertices of nonzero degree, drawn by
+    the generator file ``<here>/graphs/<cfg["generator"]>.py``."""
+    graph = load_module(Path(here) / "graphs" / f"{cfg['generator']}.py")
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(cfg["structure_seed"]))
-    n = 1 << cfg["scale"]
-    src, dst = GENERATORS[cfg["generator"]](cfg, gen, device)
+    n = graph.n_nodes(cfg)
+    src, dst = graph.edges(cfg, gen, device)
     low, high = cfg["weights"]
     weight = torch.randint(low, high + 1, src.shape, generator=gen,
                            device=device)

@@ -1,13 +1,15 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell (an entry of ``workloads``) names a configuration, whose file
-``configs`` gives, and a traffic mix, ``mixes/<traffic>.json``.  Its
+``configs`` gives, and a traffic mix, ``mixes/<traffic>.json``.  A
+configuration names its graph's generator, ``graphs/<generator>.py``,
+which :func:`perfbench.generators.generate` loads.  Its
 check's limits are ``limits/<cell>.json``; each metric's reader is
 ``metrics/<metric>.py``, or, for a quantity split by the cells it is
 reported in (``evps.pr``, ``evps.sssp``), the quantity's reader
 ``metrics/<quantity>.py``, the name up to its first dot.  A mix's
 program has its plain solver in ``reference/<program>.py``.  Adding a
-cell, a mix or a metric adds files and entries only.
+cell, a mix, a graph or a metric adds files and entries only.
 """
 from __future__ import annotations
 

@@ -162,7 +162,7 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device,
     mix = cell.mix
     t_gen = time.perf_counter()
     coo = generators.generate(cell.config, seed, mix.get("sources", 0),
-                              device)
+                              device, here=bench.here)
 
     t_build = time.perf_counter()
     graph = Graph.from_coo(coo.src, coo.dst, coo.n_nodes, weight=coo.weight)

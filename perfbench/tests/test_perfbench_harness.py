@@ -82,7 +82,7 @@ def test_benchmark_json_schema():
 def test_every_file_found_by_name(cell):
     bench = registry.load()
     c = bench.cell(cell)
-    assert c.config["generator"] in ("kron", "urand")
+    assert (bench.here / "graphs" / f"{c.config['generator']}.py").is_file()
     assert set(c.limits) and c.mix["program"]
     ref = bench.reference(c.mix["program"])
     assert callable(ref.solve) and callable(ref.readings)
@@ -235,6 +235,69 @@ def test_added_by_files_and_entries_only(tmp_path):
     result = harness.run_cell(bench, cell, 5, 0.2, False, "cpu")
     assert set(result["metrics"]) == {"evps.pr", "run_p95_ms.pr",
                                       "setup_s"}
+
+
+GRID = """# A grid of rows x cols vertices, with edges to the right and
+# below: V is not a power of two, and nothing is drawn.
+import torch
+
+
+def n_nodes(cfg):
+    return cfg["rows"] * cfg["cols"]
+
+
+def edges(cfg, gen, device):
+    rows, cols = cfg["rows"], cfg["cols"]
+    v = torch.arange(rows * cols, device=device).reshape(rows, cols)
+    src = torch.cat([v[:, :-1].reshape(-1), v[:-1, :].reshape(-1)])
+    dst = torch.cat([v[:, 1:].reshape(-1), v[1:, :].reshape(-1)])
+    return src, dst
+"""
+
+
+GRID_LIMITS = {"pr.TG0": {"pr_l1_err": 2.5e-6},
+               "sssp.DD0": {"sssp_mismatch": 0}}
+
+
+@pytest.mark.parametrize("traffic", sorted(GRID_LIMITS))
+def test_graph_added_by_files_and_entries_only(tmp_path, traffic):
+    """A new kind of graph, as a later PR adds one: a generator file in
+    ``graphs/``, a configuration that names it, a limits file and
+    entries in BENCHMARK.json; its cell runs correct against the plain
+    references on the CPU."""
+    from perfbench import generators
+    here = tmp_path / "perfbench"
+    shutil.copytree(ROOT / "perfbench", here,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (here / "graphs" / "grid.py").write_text(GRID)
+    cfg = {"generator": "grid", "rows": 20, "cols": 15, "weights": [1, 255],
+           "structure_seed": 11}
+    (here / "configs" / "grid-20x15.json").write_text(json.dumps(cfg))
+    name, limit = f"grid.{traffic}", GRID_LIMITS[traffic]
+    (here / "limits" / f"{name}.json").write_text(json.dumps(limit))
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "grid-20x15", "source": "a test",
+                            "file": "perfbench/configs/grid-20x15.json",
+                            "reduced": [], "why": "a test"})
+    spec["workloads"].append({"name": name, "config": "grid-20x15",
+                              "traffic": traffic, "chips": 1,
+                              "why": "a test"})
+    program = traffic.split(".", 1)[0]
+    for m in spec["end_to_end"]:
+        if m["name"] in (f"evps.{program}", f"run_p95_ms.{program}"):
+            m["workloads"] = m["workloads"] + [name]
+    bench = registry.Benchmark(root=tmp_path, spec=spec, here=here)
+    cell = bench.cell(name)
+    assert generators.generate(cell.config, 5, 0, "cpu", here=here
+                               ).n_nodes == 300
+    with pytest.raises(FileNotFoundError, match="grid.py"):
+        generators.generate(cell.config, 5, 0, "cpu")
+    result = harness.run_cell(bench, cell, 2**31 + 5, 0.2, False, "cpu")
+    _schema(result, False)
+    assert result["correct"] is True and result["failed"] == 0
+    assert set(result["checks"]) == set(limit)
+    assert set(result["metrics"]) == {f"evps.{program}",
+                                      f"run_p95_ms.{program}", "setup_s"}
 
 
 def test_reader_of_a_split_quantity():
